@@ -1,0 +1,1 @@
+"""api of the PyTorch/CUDA port (counterpart of ``eftpipe_tpu/api/``)."""

@@ -1,0 +1,111 @@
+"""State carried across from the JAX package, as plain NumPy.
+
+The port never imports the JAX package; a caller that has it (the parity
+tests) extracts its Phase-A state as nested dicts of NumPy arrays and hands
+them over here, so that both sides compute from IDENTICAL constants:
+
+* :func:`pipeline_from_numpy` — the ``nt/bt/rt/at`` table dicts of a
+  ``TracerPipeline`` (dataclass members such as the FFTLog plans and the
+  spline table given as dicts of their fields);
+* :func:`likelihood_from_numpy` — the likelihood's data vector, inverse
+  covariance, gather indices, binning matrices and marginal prior.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import resolve_device, to_device
+from .likelihood.likelihood import EFTLikelihood, TracerSpec, _TracerRuntime
+from .likelihood.marginal import MarginalSetup
+from .likelihood.parambasis import WestCoastBasis
+from .models.config import EFTConfig
+from .models.nonlinear import nonlinear_tables_to
+from .models.pipeline import TracerPipeline
+from .ops.fftlog import FFTLogPlan
+from .ops.interp import SplineTable
+
+
+def _plan(d) -> FFTLogPlan:
+    return d if isinstance(d, FFTLogPlan) else FFTLogPlan(**d)
+
+
+def pipeline_from_numpy(cfg: EFTConfig, tables: dict, device=None,
+                        dtype=torch.float64, zeff: float | None = None,
+                        quadform: str = "kernel") -> TracerPipeline:
+    """A ``TracerPipeline`` from ``tables = {"nt", "bt", "rt", "at"}`` (the
+    last two optional).  ``nt["plan_cf"]`` may be ``None`` or absent when it
+    is the same plan as ``nt["plan_pk"]``.  Entries of the JAX tables that
+    this slice does not use (the low-rank factors) are dropped."""
+    device = resolve_device(device)
+    nt = {k: v for k, v in tables["nt"].items() if k != "lowrank"}
+    nt["plan_pk"] = _plan(nt["plan_pk"])
+    nt["plan_cf"] = _plan(nt["plan_cf"]) if nt.get("plan_cf") is not None else nt["plan_pk"]
+    bt = {k: v for k, v in tables["bt"].items() if not k.startswith("cp_")}
+    rt = tables.get("rt")
+    if rt is not None:
+        rt = dict(rt, plan=_plan(rt["plan"]), xplan=_plan(rt["xplan"]))
+    at = tables.get("at")
+    if at is not None:
+        sp = at["spline"]
+        at = dict(at, spline=sp if isinstance(sp, SplineTable) else SplineTable(**sp))
+    return TracerPipeline(
+        cfg=cfg,
+        nt=nonlinear_tables_to(nt, device, dtype),
+        bt=to_device(bt, device, dtype),
+        rt=to_device(rt, device, dtype) if rt is not None else None,
+        at=to_device(at, device, dtype) if at is not None else None,
+        zeff=zeff, device=device, dtype=dtype, quadform=quadform)
+
+
+def likelihood_from_numpy(pipelines: dict, state: dict) -> EFTLikelihood:
+    """An ``EFTLikelihood`` over ``pipelines`` (name → TracerPipeline) from
+
+    state = {"tracers": {name: {"prefix", "ls", "rows", "cols",
+                                "binning_matrix", "keff"}},
+             "data_vector", "invcov",
+             "marg_names", "marg_mu", "marg_sigma"}   (marg_* optional)
+
+    without reading any file; tracer order is the order of ``state["tracers"]``.
+    """
+    like = object.__new__(EFTLikelihood)
+    like.tracers, like.runtimes = {}, {}
+    offsets = [0]
+    for name, ts in state["tracers"].items():
+        pipe = pipelines[name]
+        spec = TracerSpec(pipeline=pipe, basis=WestCoastBasis(prefix=ts["prefix"]), data={})
+        matrix = np.asarray(ts["binning_matrix"], np.float64)
+        binning = dict(matrix=matrix, keff=np.asarray(ts["keff"]),
+                       matrix_dev=torch.as_tensor(matrix, dtype=pipe.dtype, device=pipe.device))
+        rows = np.asarray(ts["rows"])
+        like.tracers[name] = spec
+        like.runtimes[name] = _TracerRuntime(
+            spec=spec, ls=list(ts["ls"]), ls_tot=list(ts["ls"]), kall=binning["keff"],
+            kmin=None, kmax=None, kout=binning["keff"],
+            data_vector=np.zeros(rows.size), rows=rows, cols=np.asarray(ts["cols"]),
+            binning_tables=binning)
+        offsets.append(offsets[-1] + rows.size)
+    like.data_vector = np.asarray(state["data_vector"], np.float64)
+    like.ndata = like.data_vector.size
+    if like.ndata != offsets[-1]:
+        raise ValueError(f"data vector has {like.ndata} entries, gathers give {offsets[-1]}")
+    like.segments = {name: (offsets[i], offsets[i + 1]) for i, name in enumerate(like.runtimes)}
+    like.invcov = np.asarray(state["invcov"], np.float64)
+    like.covmat = like.full_covmat = None
+    like.hartlap = None
+    like.jeffreys = False
+    like.marginal, like._bg_groups, like._bg_index = None, {}, {}
+    if state.get("marg_names"):
+        names = list(state["marg_names"])
+        like.marginal = MarginalSetup(
+            names=names, locs=[float(x) for x in state["marg_mu"]],
+            scales=[float(x) for x in state["marg_sigma"]])
+        for name, spec in like.tracers.items():
+            allowed = set(spec.basis.gaussian_params())
+            like._bg_groups[name] = [p for p in names if p in allowed]
+        for group in like._bg_groups.values():
+            for p in group:
+                like._bg_index.setdefault(p, len(like._bg_index))
+    like._to_device()
+    return like

@@ -1,0 +1,162 @@
+"""Per-tracer theory pipeline (counterpart of ``eftpipe_tpu/models/pipeline.py``).
+
+The analogue of upstream ``EFTLeafKernel.calculate_power_spectrum``
+(eftpipe/theory.py:557-609): cosmology inputs → bird → IR resummation → AP →
+per-(binned) products.  All Phase-A tables are built once, on the host, and
+moved to the device in :meth:`TracerPipeline.build`; the per-evaluation
+methods run on a whole walker batch (leading axis W).
+
+Stages of the JAX pipeline that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from dataclasses import dataclass
+from typing import Any, NamedTuple
+
+from .. import resolve_device
+from .config import EFTConfig
+from .nonlinear import build_nonlinear_tables, nonlinear_pscf
+from .bird import build_bird_tables, assemble_bird, BirdState
+from .resum import build_resum_tables, resum_ps
+from .ap import build_ap_tables, ap_transform
+from .transforms import build_binning_matrix, apply_binning
+from ..ops.precision import stage_precision
+
+_UNPORTED = {
+    "window": "the configuration-space survey window (ROADMAP A1)",
+    "window_matrix": "the window matrix (ROADMAP A6)",
+    "icc": "the integral constraint (ROADMAP A6)",
+    "fiber": "the fiber-collision correction (ROADMAP A6)",
+}
+
+
+class CosmoInputs(NamedTuple):
+    """Per-evaluation cosmology inputs of one tracer, batched over walkers.
+
+    ``plin`` (W, nkin) is sampled on the pipeline's fixed ``cfg.kin`` grid;
+    ``f`` (W,); ``qperp``/``qpar`` (W,) are the AP distortion parameters
+    (DA/DA_fid and H_fid/H); 1.0 disables the distortion.
+    """
+
+    plin: Any
+    f: Any
+    qperp: Any = 1.0
+    qpar: Any = 1.0
+
+
+@dataclass
+class TracerPipeline:
+    cfg: EFTConfig
+    nt: dict
+    bt: dict
+    rt: dict | None = None
+    at: dict | None = None
+    with_rsd: bool = True
+    zeff: float | None = None
+    device: Any = None
+    dtype: Any = None
+    quadform: str = "kernel"
+
+    @classmethod
+    def build(
+        cls,
+        cfg: EFTConfig,
+        zeff: float | None = None,
+        with_irresum: bool | dict = True,
+        apeffect: dict | None = None,
+        window: dict | None = None,
+        window_matrix: dict | None = None,
+        icc: dict | None = None,
+        fiber: dict | None = None,
+        with_rsd: bool = True,
+        cache_dir=None,
+        device=None,
+        dtype=torch.float64,
+        quadform: str = "kernel",
+    ) -> "TracerPipeline":
+        """Build all Phase-A tables and move them to ``device`` (default: the
+        card; raises when there is none).  ``quadform`` selects the dense
+        quadratic forms' route, see :func:`..nonlinear.nonlinear_pscf`."""
+        for name, value in (("window", window), ("window_matrix", window_matrix),
+                            ("icc", icc), ("fiber", fiber)):
+            if value:
+                raise NotImplementedError(
+                    f"TracerPipeline.build: {_UNPORTED[name]} is not ported yet")
+        device = resolve_device(device)
+        nt = build_nonlinear_tables(cfg, device, dtype, cache_dir=cache_dir)
+        bt = build_bird_tables(cfg, device, dtype)
+        rt = None
+        if with_irresum:
+            kwargs = with_irresum if isinstance(with_irresum, dict) else {}
+            rt = build_resum_tables(cfg, device, dtype, **kwargs)
+        at = build_ap_tables(cfg, device, dtype, **apeffect) if apeffect else None
+        return cls(cfg=cfg, nt=nt, bt=bt, rt=rt, at=at, with_rsd=with_rsd,
+                   zeff=zeff, device=device, dtype=dtype, quadform=quadform)
+
+    def freeze_template(self, plin):
+        raise NotImplementedError(
+            "TracerPipeline.freeze_template: the template-fit fast path is not "
+            "ported yet (ROADMAP A7)")
+
+    def compute_bird(self, inputs: CosmoInputs, with_snapshots: bool = False,
+                     stop_after: str | None = None):
+        """Full bird pipeline on a walker batch; with ``with_snapshots`` also
+        returns the state after each enabled stage (upstream BirdSnapshot,
+        pybird.py:616-632).  ``stop_after`` truncates the pipeline after the
+        named stage — the stage-prefix hook of the timing decomposition."""
+        cfg = self.cfg
+        plin = inputs.plin
+        f = inputs.f if self.with_rsd else torch.zeros_like(inputs.f)
+        snaps: dict[str, BirdState] = {}
+        with stage_precision("nonlinear"):
+            out = nonlinear_pscf(self.nt, cfg, plin, quadform=self.quadform)
+            bird = assemble_bird(self.bt, cfg, out, plin, f)
+        snaps["nonlinear"] = bird
+        if stop_after == "nonlinear":
+            return bird
+        if self.rt is not None:
+            with stage_precision("IRresum"):
+                bird = resum_ps(self.rt, cfg, bird, plin)
+            snaps["IRresum"] = bird
+        if stop_after == "IRresum":
+            return bird
+        if self.at is not None:
+            with stage_precision("APeffect"):
+                bird = ap_transform(self.at, cfg, bird, inputs.qperp, inputs.qpar)
+            snaps["APeffect"] = bird
+        if with_snapshots:
+            return bird, snaps
+        return bird
+
+    def binning_tables(self, kout, **binning_opts) -> dict:
+        """Host binning tables plus ``matrix_dev``, the bin-average matrix on
+        the pipeline's device."""
+        tables = build_binning_matrix(self.cfg, kout, **binning_opts)
+        tables["matrix_dev"] = torch.as_tensor(
+            tables["matrix"], dtype=self.dtype, device=self.device)
+        return tables
+
+    def product_info(self, chained: bool = False, binning: dict | None = None):
+        """Static (ls, kgrid, nk) of a product combination."""
+        if chained:
+            raise NotImplementedError(
+                "chained multipoles are not ported yet (ROADMAP A5)")
+        cfg = self.cfg
+        kret = binning["keff"] if binning is not None else cfg.k
+        ls = [2 * i for i in range(cfg.no)]
+        return ls, kret, len(kret)
+
+    def product(self, bird: BirdState, chained: bool = False,
+                binning: dict | None = None) -> tuple[list[int], np.ndarray, BirdState]:
+        """(ls, kgrid, birdlike) for one (binned) combination
+        (theory.py:590-604)."""
+        ls, kret, _ = self.product_info(chained, binning)
+        out = bird
+        if binning is not None:
+            with stage_precision("binning"):
+                out = apply_binning(binning["matrix_dev"], out)
+        return ls, kret, out

@@ -1,0 +1,147 @@
+"""The slice as a whole: the port's flagship ``logp`` against the JAX
+package's on seeded points at the full default widths (float64), its float32
+path against its float64 path, and the Eisenstein–Hu provider."""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from eftpipe_tpu.api import flagship as jflag
+from eftpipe_tpu.boltzmann import eh98 as jeh
+from eftpipe_tpu.models.config import EFTConfig as JConfig
+from eftpipe_tpu_torch.api import flagship as tflag
+from eftpipe_tpu_torch.boltzmann import eh98 as teh, background as tbg
+from eftpipe_tpu_torch.models.ap import lcdm_da, lcdm_hubble
+from eftpipe_tpu_torch.models.config import EFTConfig as TConfig
+from eftpipe_tpu_torch.ops import quadform as tq
+
+from test_eh98 import GROWTH_POINTS
+
+GOLDENS = __import__("pathlib").Path(__file__).parent / "goldens"
+
+
+def seeded_points(theta0, n=4, seed=0):
+    rng = np.random.default_rng(seed)
+    return theta0[None, :] * (1.0 + 1e-3 * rng.standard_normal((n, theta0.size)))
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    """Each package builds its own flagship — Phase-A tables, mock data and
+    covariance — in its own workdir; the JAX side once per module."""
+    jmodel = jflag.build_flagship(tmp_path_factory.mktemp("flagship_jax"), dtype=jnp.float64,
+                                  with_window=False, cosmology="eh98")
+    twork = tmp_path_factory.mktemp("flagship_torch")
+    tmodel = tflag.build_flagship(twork, dtype=torch.float64, device="cpu")
+    return jmodel, tmodel, twork
+
+
+def test_flagship_static_state_matches(models):
+    jmodel, tmodel, _ = models
+    assert tmodel.param_names == jmodel.param_names
+    np.testing.assert_array_equal(tmodel.theta0, jmodel.theta0)
+    assert tflag.FIDUCIAL == jflag.FIDUCIAL and tflag.TRACERS == jflag.TRACERS
+    # each side generated its own mock data and covariance from its own model
+    np.testing.assert_allclose(tmodel.like.data_vector, jmodel.like.data_vector, rtol=1e-9)
+    np.testing.assert_allclose(tmodel.like.invcov, jmodel.like.invcov, rtol=1e-7,
+                               atol=1e-9 * np.abs(jmodel.like.invcov).max())
+    assert tmodel.like.ndata == jmodel.like.ndata
+    assert tmodel.like.marginal.names == jmodel.like.marginal.names
+    for name, spec in tmodel.like.tracers.items():
+        cfg = spec.pipeline.cfg
+        assert (cfg.nfft_loop, cfg.nkin, cfg.nk, cfg.ns) == (256, 200, 50, 80)
+        assert spec.pipeline.nt["mcf_fold"].shape == (38 * cfg.nl, 255, 255)
+        assert spec.pipeline.nt["m22_fold"].shape == (28, 255, 255)
+
+
+def test_flagship_logp_matches_jax_float64(models):
+    """|Δlogp| ≤ 1e-8·|logp| on 4 seeded points (float64, dense forms)."""
+    jmodel, tmodel, _ = models
+    thetas = seeded_points(tmodel.theta0)
+    want = np.asarray(jax.vmap(jmodel.logp)(jnp.asarray(thetas)))
+    got = tmodel.logp(thetas)
+    assert got.shape == (4,) and got.dtype == torch.float64
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-8, atol=0)
+    # chunking the walker axis changes nothing
+    np.testing.assert_allclose(tmodel.logp(thetas, chunk=3).numpy(), got.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(tmodel.logp(torch.as_tensor(thetas), chunk=1).numpy(),
+                               got.numpy(), rtol=1e-12)
+
+
+def test_flagship_peaks_at_fiducial_and_validates_input(models):
+    _, tmodel, _ = models
+    lp = tmodel.logp(np.stack([tmodel.theta0, tmodel.theta0 * 1.05]))
+    assert torch.isfinite(lp).all() and lp[0] > lp[1]
+    with pytest.raises(ValueError):
+        tmodel.logp(tmodel.theta0)          # the walker axis is explicit
+    with pytest.raises(ValueError):
+        tmodel.logp(np.zeros((2, 5)))
+
+
+def test_flagship_float32_within_budget_of_float64(models):
+    """float32 (GL-16 AP quadrature, IEEE products) against float64 on 16
+    seeded points: |Δlogp| < 0.02, the JAX package's accuracy budget."""
+    _, tmodel, twork = models
+    m32 = tflag.build_flagship(twork, dtype=torch.float32, device="cpu")
+    thetas = seeded_points(tmodel.theta0, n=16, seed=1)
+    lp32 = m32.logp(thetas)
+    assert lp32.dtype == torch.float32
+    d = np.abs(lp32.double().numpy() - tmodel.logp(thetas).numpy())
+    assert d.max() < 0.02, d.max()
+    # the plain route gives the same float32 numbers as the public op on the CPU
+    plain = tflag.build_flagship(twork, dtype=torch.float32, device="cpu", quadform="plain")
+    np.testing.assert_array_equal(plain.logp(thetas).numpy(), lp32.numpy())
+
+
+def test_flagship_fold_ab_check_and_no_launch_on_cpu(models):
+    """The complex A/B reference of the fold at full width; on the CPU no
+    kernel is launched."""
+    _, tmodel, _ = models
+    tq.reset_launch_counts()
+    ref, folded = tmodel.fold_ab_check(seeded_points(tmodel.theta0, n=2), tracer="ELG")
+    assert ref.shape == folded.shape == (2, 38, 80)
+    assert float((ref - folded).abs().max() / folded.abs().max()) < 1e-10
+    assert tq.LAUNCHES == {"qf_real": 0, "cf_half": 0}
+
+
+def test_eh98_provider_matches_jax():
+    rng = np.random.default_rng(5)
+    w = 5
+    fid = tflag.FIDUCIAL
+    params = {k: v * (1 + 0.02 * rng.standard_normal(w)) for k, v in fid.items()}
+    om_fid = (fid["omega_b"] + fid["omega_cdm"]) / fid["h"] ** 2
+    kw = dict(zeff=0.845, da_fid=lcdm_da(om_fid, 0.845), h_fid=lcdm_hubble(om_fid, 0.845))
+    jprov = jeh.EisensteinHuProvider(cfg=JConfig(), **kw)
+    tprov = teh.EisensteinHuProvider(cfg=TConfig(), **kw)
+    want = jax.vmap(jprov.inputs)({k: jnp.asarray(v) for k, v in params.items()})
+    got = tprov.inputs({k: torch.as_tensor(v) for k, v in params.items()})
+    for field in want._fields:
+        np.testing.assert_allclose(getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+                                   rtol=1e-11, err_msg=field)
+    assert got.plin.shape == (w, 200) and got.f.shape == (w,)
+    off = teh.EisensteinHuProvider(cfg=TConfig(), zeff=0.845, use_ap=False).inputs(
+        {k: torch.as_tensor(v) for k, v in params.items()})
+    assert torch.equal(off.qperp, torch.ones(w, dtype=torch.float64))
+    # float32 inputs give float32 outputs on the same device
+    p32 = tprov.inputs({k: torch.as_tensor(v, dtype=torch.float32) for k, v in params.items()})
+    assert p32.plin.dtype == torch.float32
+    np.testing.assert_allclose(p32.plin.double().numpy(), got.plin.numpy(), rtol=2e-4)
+
+
+def test_growth_and_background_match_goldens_and_host():
+    gold = np.load(GOLDENS / "eh98_growth_fn.npz")["fn"]
+    for (om, z), fn_ref in zip(GROWTH_POINTS, gold):
+        d, f = teh.lcdm_growth(torch.tensor([om, om], dtype=torch.float64), z)
+        assert float(f[0]) == pytest.approx(fn_ref, rel=1e-8) and float(f[1]) == float(f[0])
+        assert float(d[0]) == pytest.approx(tbg.growth_factor_lcdm(om, z), rel=1e-8)
+        assert tbg.growth_rate_lcdm(om, z) == pytest.approx(fn_ref, rel=1e-10)
+        jd, jf = jeh.lcdm_growth(jnp.asarray(om), jnp.asarray(z))
+        assert float(d[0]) == pytest.approx(float(jd), rel=1e-13)
+        assert float(teh.lcdm_growth_f(torch.tensor([om], dtype=torch.float64), z)[0]) == float(f[0])
+    for om, z in [(0.31, 0.7), (0.27, 1.2)]:
+        e, da = teh.lcdm_background(torch.tensor([om], dtype=torch.float64), z)
+        assert float(e[0]) == pytest.approx(lcdm_hubble(om, z), rel=1e-12)
+        assert float(da[0]) == pytest.approx(lcdm_da(om, z), rel=1e-9)

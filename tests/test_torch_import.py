@@ -1,0 +1,113 @@
+"""The port stands alone: importing it (and the smoke script) pulls in neither
+JAX nor the JAX package, and its entry points refuse a missing card."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_MODULES = [
+    "eftpipe_tpu_torch", "eftpipe_tpu_torch.convert",
+    "eftpipe_tpu_torch.api.flagship", "eftpipe_tpu_torch.boltzmann.eh98",
+    "eftpipe_tpu_torch.boltzmann.background",
+    "eftpipe_tpu_torch.likelihood.likelihood", "eftpipe_tpu_torch.likelihood.marginal",
+    "eftpipe_tpu_torch.likelihood.parambasis", "eftpipe_tpu_torch.likelihood.reader",
+    "eftpipe_tpu_torch.likelihood.covariance",
+    "eftpipe_tpu_torch.models.pipeline", "eftpipe_tpu_torch.models.nonlinear",
+    "eftpipe_tpu_torch.models.bird", "eftpipe_tpu_torch.models.resum",
+    "eftpipe_tpu_torch.models.ap", "eftpipe_tpu_torch.models.transforms",
+    "eftpipe_tpu_torch.ops.quadform", "eftpipe_tpu_torch.ops.fftlog",
+    "eftpipe_tpu_torch.ops.interp", "eftpipe_tpu_torch.ops._build",
+    "eftpipe_tpu_torch.tables.loop_matrices", "eftpipe_tpu_torch.tables.qcoef",
+]
+
+
+def _run(code: str, cwd=ROOT):
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    code = (
+        "import sys, importlib\n"
+        f"[importlib.import_module(m) for m in {_MODULES!r}]\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'jaxlib' or m == 'eftpipe_tpu' or m.startswith('eftpipe_tpu.')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
+        "print('clean')\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+
+
+def test_no_jax_import_statement_in_the_port_sources():
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|eftpipe_tpu)(\s|\.|$)", re.M)
+    files = list((ROOT / "eftpipe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_chip_smoke_fails_without_a_card_and_imports_no_jax():
+    """Run as a script on a CUDA-less machine: non-zero exit, no result line,
+    and the import of jax is never reached."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    code = (
+        "import sys, runpy\n"
+        "try:\n"
+        "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "assert 'jax' not in sys.modules and 'eftpipe_tpu' not in sys.modules\n"
+        "print('clean')\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+
+
+def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_cuda_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from eftpipe_tpu_torch import resolve_device
+    from eftpipe_tpu_torch.api.flagship import build_flagship
+    from eftpipe_tpu_torch.models.config import EFTConfig
+    from eftpipe_tpu_torch.models.pipeline import TracerPipeline
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_flagship(tmp_path)  # default device is the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TracerPipeline.build(EFTConfig(nfft_loop=32, nkin=60), device="cuda")
+
+
+@pytest.mark.parametrize("kwargs, match", [
+    (dict(with_window=True), "A1"),
+    (dict(cosmology="solver_emulator"), "A3"),
+])
+def test_unported_options_raise_not_implemented(tmp_path, kwargs, match):
+    from eftpipe_tpu_torch.api.flagship import build_flagship
+
+    with pytest.raises(NotImplementedError, match=match):
+        build_flagship(tmp_path, device="cpu", **kwargs)
