@@ -14,15 +14,25 @@ Phases, each printing one JSON line:
    float64 on the same inputs: float32 at the flagship's shapes and at a small
    ragged shape, float64 at the small shape (separates an indexing fault from
    float32 rounding).  Times by ``torch.cuda.Event`` over distinct inputs.
-4. ``main_path`` — builds the flagship model (two tracers, full default
-   widths, float32, dense quadratic forms through the kernels) on the card,
-   evaluates ``logp`` at 64 seeded points, compares with the port's float64
-   plain path (|dlogp| < 0.02), runs the complex A/B check of the Hermitian
-   fold, then times batches of 1024 walkers and the stage prefixes.  The
-   kernels' launch counters are set to 0 just before and read just after.
-   One more batch is traced with ``torch.profiler`` (``profile`` line: device
-   time by kernel, the device's idle share).
-5. ``kernels`` line, the card's ``nvidia-smi`` line, and the final
+4. ``main_path`` — builds the default flagship model (two tracers, full
+   default widths, survey window, solver-emulator cosmology, float32, dense
+   quadratic forms through the kernels) on the card, evaluates ``logp`` at 64
+   seeded points, compares with the port's float64 plain path (|dlogp| <
+   0.02), runs the complex A/B check of the Hermitian fold, then times
+   batches of 1024 walkers and the stage prefixes.  The kernels' launch
+   counters are set to 0 just before and read just after.  One more batch is
+   traced with ``torch.profiler`` (``profile`` line: device time by kernel,
+   the device's idle share, and the host-device synchronisations one
+   ``logp`` call makes, by torch's sync debug mode).
+5. ``main_path_lite`` — the same for the flagship without window and with the
+   Eisenstein–Hu cosmology: the 64-point check, one timed batch of 256 and
+   its profile.
+6. ``stages`` — one LRG tracer pipeline with window (the LRG NGC window
+   multipoles of ``tests/goldens/window_input_lrg_ngc.npz``), integral
+   constraint and fiber collisions, and one with a window matrix, each in
+   float32 at W=64 against the float64 plain path (same µ quadrature); the
+   bias-contracted multipoles are held to the 1e-4 budget.
+7. ``kernels`` line, the card's ``nvidia-smi`` line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises: the exit code is then non-zero and no final line is
@@ -45,20 +55,30 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device (torch.cuda.is_available() is False)\n")
     sys.exit(2)
 
-from eftpipe_tpu_torch.api.flagship import build_flagship
+from eftpipe_tpu_torch.api.flagship import build_flagship, FIDUCIAL
+from eftpipe_tpu_torch.boltzmann.emulator import SolverEmulatorProvider
+from eftpipe_tpu_torch.likelihood.parambasis import WestCoastBasis
+from eftpipe_tpu_torch.models.ap import lcdm_da, lcdm_hubble
+from eftpipe_tpu_torch.models.config import EFTConfig
+from eftpipe_tpu_torch.models.pipeline import CosmoInputs, TracerPipeline
 from eftpipe_tpu_torch.ops import _build, quadform as qf
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORKDIR = os.path.join(ROOT, "chip_smoke_workdir")
+GOLDENS = os.path.join(ROOT, "tests", "goldens")
 
-# published peaks of one H100 SXM (data sheet, dense): device-memory rate and
-# the FMA rates outside the tensor cores, which is what the kernels use
+# published peaks of one H100 SXM (data sheet, dense): device-memory rate, the
+# FMA rates outside the tensor cores (what the kernels use) and the TF32
+# tensor-core rate, of which a 3xTF32 split (float32-grade products) gets a third
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_NAME = {torch.float32: "67 TFLOP/s float32 (non-tensor)",
              torch.float64: "34 TFLOP/s float64 (non-tensor)"}
+TF32_FLOPS = 495e12
 LOGP_ABS_BUDGET = 0.02
+MULTIPOLE_REL_BUDGET = 1e-4  # tests/test_accuracy_budget.py
 CHUNK_TRIALS = (256, 512)  # walker chunks tried, beside the whole batch
+LITE_BATCH = 256
 
 REPLACES = {
     "qf_real": "eftpipe_tpu/ops/pallas_kernels.py:313",
@@ -169,6 +189,7 @@ def check_kernel(kernel: str, dtype, nw: int, n: int, s: int, bl: int,
         tolerance=f"|d| <= {rtol}*|ref| + {atol_rel}*max|ref| vs plain float64",
         ok=ok, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=bound_ms, bound_by=bound_by, peak=PEAK_NAME[dtype],
+        bound_tf32x3_ms=3.0 * flops / TF32_FLOPS * 1e3,
         flops=flops, bytes_min=nbytes,
         tflops=flops / (kernel_ms * 1e-3) / 1e12,
     )
@@ -225,6 +246,244 @@ def profile_batch(fn, wall_seconds: float, top: int = 8) -> dict:
                 top=[dict(name=k[:80], ms=us / 1e3, calls=n) for k, us, n in rows[:top]])
 
 
+def sync_sites(fn) -> list:
+    """The places where one call of ``fn`` synchronised the host with the
+    card (torch's sync debug mode: one warning per synchronising operation,
+    at the Python line that issued it)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+            if "synchronizing" in str(w.message)]
+
+
+def flagship_path(phase: str, model_name: str, build_kw: dict, nb: int, n_timed: int,
+                  chunk_trials: tuple, full: bool, lines: list) -> dict:
+    """Drive one flagship configuration: build float32 (kernels) and float64
+    (plain) models, the 64-point |dlogp| check against the float64 path,
+    ``n_timed`` timed batches of ``nb`` walkers and a profiled batch; with
+    ``full`` also the fold A/B check, stage prefixes and peak memory.  Launch
+    counters are zeroed just before the counted window and read just after;
+    returns the launches by shape."""
+    f32, f64 = torch.float32, torch.float64
+    workdir = os.path.join(WORKDIR, phase)
+    t0 = time.perf_counter()
+    model = build_flagship(workdir, dtype=f32, **build_kw)
+    phase_a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_model = build_flagship(workdir, dtype=f64, quadform="plain", **build_kw)
+    phase_a_ref_s = time.perf_counter() - t0
+    thetas = accuracy_batch(model.theta0)
+    rng = np.random.default_rng(10)
+    batches = [torch.as_tensor(
+        model.theta0[None, :] * (1.0 + 1e-3 * rng.standard_normal((nb, model.theta0.size))),
+        dtype=f32, device="cuda") for _ in range(n_timed + 1)]
+    extra = {}
+    with torch.no_grad():
+        # untimed, uncounted: the float64 plain reference and the chunk choice
+        lp_ref = ref_model.logp(thetas).cpu().numpy()
+        model.logp(thetas)  # warm-up (cuBLAS handles, kernel attributes)
+        chunk = nb
+        if chunk_trials:
+            chunk_ms = {c: host_ms(lambda c=c: model.logp(batches[-1], chunk=c), n=2)
+                        for c in chunk_trials + (nb,)}
+            chunk = min(chunk_ms, key=chunk_ms.get)
+            extra["chunk_trial_ms"] = chunk_ms
+        else:
+            model.logp(batches[-1])
+        nchunks = -(-nb // chunk)
+
+        qf.reset_launch_counts()
+        lp = model.logp(thetas)
+        if full:
+            ab_ref, ab_fold = model.fold_ab_check(thetas, tracer="LRG", ell_index=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = [model.logp(b, chunk=chunk) for b in batches[:n_timed]]
+        torch.cuda.synchronize()
+        batch_s = (time.perf_counter() - t0) / n_timed
+        launches = dict(qf.LAUNCHES)
+        by_shape = dict(qf.LAUNCHES_BY_SHAPE)
+
+        if full:
+            # float32 emulator inputs against float64 ones on the same points
+            inputs32, _ = model.cosmo_inputs(torch.as_tensor(thetas, dtype=f32, device="cuda"))
+            inputs64, _ = ref_model.cosmo_inputs(torch.as_tensor(thetas, dtype=f64, device="cuda"))
+            extra["plin_f32_max_rel"] = max(
+                float((inputs32[t].plin.double() / inputs64[t].plin - 1).abs().max())
+                for t in inputs64)
+
+            # stage prefixes at the timed batch (uncounted), cumulative ms
+            def prefix(stop):
+                def run():
+                    inputs, _ = model.cosmo_inputs(batches[0])
+                    for name, spec in model.like.tracers.items():
+                        spec.pipeline.compute_bird(inputs[name], stop_after=stop)
+                return run
+            stage_ms = {"cosmology": host_ms(lambda: model.cosmo_inputs(batches[0]))}
+            for stop in ("nonlinear", "IRresum", "APeffect", "window"):
+                stage_ms[stop] = host_ms(prefix(stop))
+            stage_ms["logp"] = host_ms(lambda: model.logp(batches[0]))
+            torch.cuda.reset_peak_memory_stats()
+            model.logp(batches[0], chunk=chunk)
+            extra.update(stage_prefix_ms=stage_ms,
+                         peak_memory_bytes=torch.cuda.max_memory_allocated())
+        trace = profile_batch(lambda: model.logp(batches[0], chunk=chunk), batch_s)
+        syncs = sync_sites(lambda: model.logp(batches[0], chunk=chunk))
+        trace.update(host_syncs_per_logp=len(syncs), sync_sites=sorted(set(syncs)))
+
+    lp_np = lp.double().cpu().numpy()
+    dlogp = float(np.abs(lp_np - lp_ref).max())
+    expected_qf = 4 + 4 * n_timed * nchunks + (1 if full else 0)
+    expected_cf = 2 if full else 0
+    finite = bool(np.isfinite(lp_np).all() and np.isfinite(lp_ref).all()
+                  and all(torch.isfinite(t).all() for t in timed))
+    if full:
+        extra["fold_ab_rel_err"] = float((ab_ref - ab_fold).abs().max() / ab_fold.abs().max())
+    lines.append(emit(
+        phase, model=model_name, dtype="float32", reference="float64 plain path on the card",
+        phase_a_seconds=phase_a_s, phase_a_reference_seconds=phase_a_ref_s,
+        n_points=int(lp_np.size), all_finite=finite, max_abs_dlogp=dlogp,
+        budget=LOGP_ABS_BUDGET, logp_range=[float(lp_ref.min()), float(lp_ref.max())],
+        launches=launches, expected_qf_real=expected_qf, expected_cf_half=expected_cf,
+        batch=nb, chunk=chunk, batch_seconds=batch_s, evals_per_s=nb / batch_s, **extra))
+    lines.append(emit("profile", path=phase, batch=nb, chunk=chunk, **trace))
+    if lp_np.shape != (64,) or any(t.shape != (nb,) for t in timed):
+        raise SystemExit(f"chip_smoke: {phase}: logp has the wrong shape")
+    if not finite:
+        raise SystemExit(f"chip_smoke: {phase}: non-finite logp")
+    if dlogp >= LOGP_ABS_BUDGET:
+        raise SystemExit(f"chip_smoke: {phase}: |dlogp| {dlogp} outside the {LOGP_ABS_BUDGET} budget")
+    if full and extra["fold_ab_rel_err"] > 2e-3:
+        raise SystemExit(f"chip_smoke: folded and complex CF loops disagree "
+                         f"({extra['fold_ab_rel_err']})")
+    if launches["qf_real"] != expected_qf or launches["cf_half"] != expected_cf:
+        raise SystemExit(f"chip_smoke: {phase}: launch counts {launches}, expected "
+                         f"qf_real={expected_qf}, cf_half={expected_cf}")
+    return by_shape
+
+
+def stage_files(workdir: str) -> dict:
+    """Inputs of the stage pipelines: the LRG NGC window multipoles of the
+    committed golden, and seeded synthetic integral-constraint tables and a
+    window matrix in the upstream ("Florian") layout."""
+    os.makedirs(workdir, exist_ok=True)
+    rng = np.random.default_rng(2024)
+    mask = os.path.join(workdir, "win_lrg_ngc.txt")
+    np.savetxt(mask, np.load(os.path.join(GOLDENS, "window_input_lrg_ngc.npz"))["table"])
+
+    s = np.geomspace(1.0, 4000.0, 600)
+    roll = 1.0 / (1.0 + (s / 350.0) ** 3)
+    sn = os.path.join(workdir, "icc_sn.txt")
+    np.savetxt(sn, np.column_stack([s, roll**2, 0.05 * roll**2, 0.01 * roll**2]))
+    sgrid = np.geomspace(2.0, 1500.0, 60)
+    g = 1.0 / (1.0 + (sgrid / 300.0) ** 2)
+    rows = []
+    for il1, l1 in enumerate((0.0, 2.0, 4.0)):
+        for il2, l2 in enumerate((0.0, 2.0, 4.0)):
+            amp = (1.0 + 0.05 * rng.standard_normal()) / (1.0 + il1 + il2)
+            for i, s1 in enumerate(sgrid):
+                for j, s2 in enumerate(sgrid):
+                    rows.append([l1, l2, s1, s2, amp * g[i] * g[j]])
+    ic = os.path.join(workdir, "icc_ic.npy")
+    np.save(ic, np.asarray(rows))
+
+    kout = (np.linspace(0, 0.4, 41)[1:] + np.linspace(0, 0.4, 41)[:-1]) / 2
+    kin = (np.linspace(0, 0.4, 401)[1:] + np.linspace(0, 0.4, 401)[:-1]) / 2
+    mrows = []
+    for lo in range(5):
+        for ko in kout:
+            mrows.append(np.hstack([
+                (1.0 if lo == 2 * li else 0.05 / (1 + abs(lo - 2 * li)))
+                * np.exp(-((kin - ko) ** 2) / (2 * 0.01**2)) for li in range(3)]))
+    wm = os.path.join(workdir, "florian.txt")
+    np.savetxt(wm, np.asarray(mrows) * (1 + 0.01 * rng.standard_normal((200, 1200))))
+    return dict(mask=mask, sn=sn, ic=ic, wm=wm)
+
+
+def stages_check(nw: int, lines: list) -> None:
+    """LRG pipelines with window + icc + fiber and with a window matrix:
+    float32 through the kernels against the float64 plain path (both on the
+    Gauss–Legendre µ quadrature, so that the comparison isolates rounding):
+    the multipoles P_l(k) of the bird after the last stage contracted with
+    fixed bias parameters, held to the 1e-4 budget relative to
+    max(|P_l(k)|, 1e-3·max|P|), the metric of tests/test_accuracy_budget.py."""
+    f32, f64 = torch.float32, torch.float64
+    workdir = os.path.join(WORKDIR, "stages")
+    files = stage_files(workdir)
+    zeff = 0.70
+    om_fid = (FIDUCIAL["omega_b"] + FIDUCIAL["omega_cdm"]) / FIDUCIAL["h"] ** 2
+    cfg = EFTConfig(nl=3, no=3, nd_a=5e-5)
+    common = dict(zeff=zeff, with_irresum=True, cache_dir=os.path.join(workdir, "cache"),
+                  apeffect=dict(om_ap=om_fid, z_ap=zeff, rdrag_ap=147.66,
+                                hubble_ap=FIDUCIAL["h"], quadrature="gauss_legendre"))
+    configs = {
+        "window+icc+fiber": dict(
+            window=dict(window_configspace_file=files["mask"], nmax=2048),
+            icc=dict(pshot=1.0 / 5e-5, icc_configspace_sn_file=files["sn"],
+                     icc_configspace_ic_file=files["ic"], nmax=1024, nxmax=512, nymax=512),
+            fiber=dict(fs=0.6, dfc=0.43 / 0.6777, ktrust=0.25)),
+        "window_matrix": dict(
+            window_matrix=dict(path=files["wm"], ells=[0, 2, 4], kmin=0.01, kmax=0.2,
+                               window_st=True)),
+    }
+    provider = SolverEmulatorProvider.load(cfg=cfg, zeff=zeff, da_fid=lcdm_da(om_fid, zeff),
+                                           h_fid=lcdm_hubble(om_fid, zeff))
+    rng = np.random.default_rng(7)
+    params = {k: torch.as_tensor(v * (1.0 + 1e-2 * rng.standard_normal(nw)), dtype=f64,
+                                 device="cuda") for k, v in FIDUCIAL.items()}
+    with torch.no_grad():
+        x64 = provider.inputs(params)
+    x32 = CosmoInputs(*(t.to(f32) for t in x64))
+    basis = WestCoastBasis(prefix="")
+    bias = dict(b1=2.2, b2=0.8, b3=0.5, b4=0.8, cct=1.0, cr1=2.0, cr2=1.0, ce0=1.0,
+                cequad=0.5)
+    bias64 = {k: torch.full((nw,), v, dtype=f64, device="cuda") for k, v in bias.items()}
+    bias32 = {k: v.to(f32) for k, v in bias64.items()}
+    for label, stage_kw in configs.items():
+        t0 = time.perf_counter()
+        p32 = TracerPipeline.build(cfg, dtype=f32, **common, **stage_kw)
+        p64 = TracerPipeline.build(cfg, dtype=f64, quadform="plain", **common, **stage_kw)
+        build_s = time.perf_counter() - t0
+        qf.reset_launch_counts()
+        with torch.no_grad():
+            b32 = p32.compute_bird(x32)
+            torch.cuda.synchronize()
+            launches = dict(qf.LAUNCHES)
+            b64 = p64.compute_bird(x64)
+            ms = host_ms(lambda: p32.compute_bird(x32))
+        # the P_l(k) a likelihood sees: the bird contracted with LRG biases
+        # and counterterms at the scales of their priors (W, nl, nk)
+        plk32 = basis.reduce_plk(cfg, b32, bias32).sum().double()
+        plk64 = basis.reduce_plk(cfg, b64, bias64).sum()
+        if not bool(torch.isfinite(plk32).all()):
+            raise SystemExit(f"chip_smoke: stages {label}: non-finite multipoles")
+        scale = torch.clamp(plk64.abs(), min=1e-3 * float(plk64.abs().max()))
+        worst = float(((plk32 - plk64).abs() / scale).max())
+        # per field of the bird, each against its own largest entry (reported)
+        field_rel = {f: float((getattr(b32, f).double() - getattr(b64, f)).abs().max()
+                              / getattr(b64, f).abs().max())
+                     for f in ("p11l", "ploopl", "pctl", "pstl", "picc")
+                     if float(getattr(b64, f).abs().max()) > 0.0}
+        lines.append(emit("stages", pipeline=f"LRG nl=3 {label}", W=nw, dtype="float32",
+                          reference="float64 plain path on the card, same mu quadrature",
+                          multipoles_shape=list(plk32.shape), max_rel_err=worst,
+                          budget=MULTIPOLE_REL_BUDGET, field_max_err_over_max=field_rel,
+                          compute_bird_ms=ms, build_seconds=build_s, launches=launches))
+        if worst >= MULTIPOLE_REL_BUDGET:
+            raise SystemExit(f"chip_smoke: stages {label}: multipoles off by {worst}")
+        if launches["qf_real"] != 2:
+            raise SystemExit(f"chip_smoke: stages {label}: launch counts {launches}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -274,7 +533,7 @@ def main() -> None:
     ]
     if not args.quick:
         # the walker counts the timed batches may hand the kernel (chunk trials)
-        for nw in CHUNK_TRIALS + (args.batch,):
+        for nw in sorted(set(CHUNK_TRIALS + (LITE_BATCH, args.batch))):
             shapes += [("qf_real", f32, nw, 255, 80, 114), ("qf_real", f32, nw, 255, 80, 76),
                        ("qf_real", f32, nw, 255, 50, 28)]
     rows = [check_kernel(*shape, gen=gen, n_timed=n_timed) for shape in shapes]
@@ -286,85 +545,17 @@ def main() -> None:
                                      "count": torch.cuda.device_count()}}))
         return
 
-    # ---- main path -------------------------------------------------------
-    t0 = time.perf_counter()
-    model = build_flagship(WORKDIR, dtype=f32, with_window=False, cosmology="eh98")
-    phase_a_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ref_model = build_flagship(WORKDIR, dtype=f64, with_window=False, cosmology="eh98",
-                               quadform="plain")
-    phase_a_ref_s = time.perf_counter() - t0
-    thetas = accuracy_batch(model.theta0)
-    rng = np.random.default_rng(10)
-    nb = args.batch
-    batches = [torch.as_tensor(
-        model.theta0[None, :] * (1.0 + 1e-3 * rng.standard_normal((nb, model.theta0.size))),
-        dtype=f32, device="cuda") for _ in range(4)]
-    with torch.no_grad():
-        # untimed, uncounted: the float64 plain reference and the chunk choice
-        lp_ref = ref_model.logp(thetas).cpu().numpy()
-        model.logp(thetas)  # warm-up (cuBLAS handles, kernel attributes)
-        chunk_ms = {c: host_ms(lambda c=c: model.logp(batches[3], chunk=c), n=2)
-                    for c in CHUNK_TRIALS + (nb,)}
-        chunk = min(chunk_ms, key=chunk_ms.get)
-        nchunks = -(-nb // chunk)
-
-        qf.reset_launch_counts()
-        lp = model.logp(thetas)
-        ab_ref, ab_fold = model.fold_ab_check(thetas, tracer="LRG", ell_index=0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        timed = [model.logp(b, chunk=chunk) for b in batches[:3]]
-        torch.cuda.synchronize()
-        batch_s = (time.perf_counter() - t0) / 3
-        launches = dict(qf.LAUNCHES)
-        by_shape = dict(qf.LAUNCHES_BY_SHAPE)
-
-        # stage prefixes at the timed batch (uncounted), cumulative ms
-        def prefix(stop):
-            def run():
-                inputs, _ = model.cosmo_inputs(batches[0])
-                for name, spec in model.like.tracers.items():
-                    spec.pipeline.compute_bird(inputs[name], stop_after=stop)
-            return run
-        stage_ms = {"cosmology": host_ms(lambda: model.cosmo_inputs(batches[0]))}
-        for stop in ("nonlinear", "IRresum", "APeffect"):
-            stage_ms[stop] = host_ms(prefix(stop))
-        stage_ms["logp"] = host_ms(lambda: model.logp(batches[0]))
-        torch.cuda.reset_peak_memory_stats()
-        model.logp(batches[0], chunk=chunk)
-        peak_mem = torch.cuda.max_memory_allocated()
-        trace = profile_batch(lambda: model.logp(batches[0], chunk=chunk), batch_s)
-
-    lp_np = lp.double().cpu().numpy()
-    dlogp = float(np.abs(lp_np - lp_ref).max())
-    ab_err = float((ab_ref - ab_fold).abs().max() / ab_fold.abs().max())
-    expected_qf = 4 + 1 + 3 * 4 * nchunks
-    finite = bool(np.isfinite(lp_np).all() and np.isfinite(lp_ref).all()
-                  and all(torch.isfinite(t).all() for t in timed))
-    main_line = emit(
-        "main_path", model="flagship LRG(nl=3)+ELG(nl=2), nfft_loop=256, eh98, no window",
-        dtype="float32", reference="float64 plain path on the card",
-        phase_a_seconds=phase_a_s, phase_a_reference_seconds=phase_a_ref_s,
-        n_points=int(lp_np.size), all_finite=finite, max_abs_dlogp=dlogp,
-        budget=LOGP_ABS_BUDGET, logp_range=[float(lp_ref.min()), float(lp_ref.max())],
-        fold_ab_rel_err=ab_err, launches=launches, expected_qf_real=expected_qf,
-        expected_cf_half=2, batch=nb, chunk=chunk, chunk_trial_ms=chunk_ms,
-        batch_seconds=batch_s, evals_per_s=nb / batch_s,
-        stage_prefix_ms=stage_ms, peak_memory_bytes=peak_mem)
-    lines.append(main_line)
-    lines.append(emit("profile", batch=nb, chunk=chunk, **trace))
-    if lp_np.shape != (64,) or any(t.shape != (nb,) for t in timed):
-        raise SystemExit("chip_smoke: logp has the wrong shape")
-    if not finite:
-        raise SystemExit("chip_smoke: non-finite logp")
-    if dlogp >= LOGP_ABS_BUDGET:
-        raise SystemExit(f"chip_smoke: |dlogp| {dlogp} outside the {LOGP_ABS_BUDGET} budget")
-    if ab_err > 2e-3:
-        raise SystemExit(f"chip_smoke: folded and complex CF loops disagree ({ab_err})")
-    if launches["qf_real"] != expected_qf or launches["cf_half"] != 2:
-        raise SystemExit(f"chip_smoke: launch counts {launches}, expected "
-                         f"qf_real={expected_qf}, cf_half=2")
+    # ---- the two flagship paths, then the survey-geometry stages ---------
+    by_shape = flagship_path(
+        "main_path", "flagship LRG(nl=3)+ELG(nl=2), nfft_loop=256, window, solver_emulator",
+        dict(), nb=args.batch, n_timed=3, chunk_trials=CHUNK_TRIALS, full=True, lines=lines)
+    lite = flagship_path(
+        "main_path_lite", "flagship LRG(nl=3)+ELG(nl=2), nfft_loop=256, eh98, no window",
+        dict(with_window=False, cosmology="eh98"), nb=LITE_BATCH, n_timed=1,
+        chunk_trials=(), full=False, lines=lines)
+    for key, n in lite.items():
+        by_shape[key] = by_shape.get(key, 0) + n
+    stages_check(64, lines)
 
     # ---- the kernels line: one row per kernel and main-path shape ---------
     out_rows = []

@@ -2,10 +2,12 @@
 (counterpart of ``eftpipe_tpu/api/flagship.py``).
 
 Two tracers (LRG-like z=0.70 with P0/P2/P4, ELG-like z=0.845 with P0/P2),
-each with IR resummation, AP projection and k-binning, and a joint
+each with IR resummation, AP projection, survey-window convolution
+(synthetic but realistic mask multipoles), k-binning, and a joint
 Gaussian-covariance likelihood with analytic marginalization over the 12
 linearly-entering EFT parameters.  Cosmology runs on the device through the
-Eisenstein–Hu provider, so the sampled vector is
+solver emulator (the shipped artifact; Eisenstein–Hu with
+``cosmology="eh98"``), so the sampled vector is
 
     theta = (omega_cdm, h, ln10As, LRG_b1, LRG_b2, LRG_b4,
              ELG_b1, ELG_b2, ELG_b4)
@@ -16,8 +18,9 @@ The mock data vector is generated from the model itself at the fiducial
 parameter point; the covariance is the analytic Gaussian covariance at that
 point.  All Phase-A artifacts are cached under ``workdir``.
 
-Not ported yet (raise ``NotImplementedError``): the survey window
-(``with_window=True``) and the solver-emulator cosmology.
+The defaults are the JAX package's: window on (``window_nmax=2048``) and
+``cosmology=None``, which resolves to ``"solver_emulator"`` when the artifact
+ships (it does) and to ``"eh98"`` otherwise.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..likelihood.likelihood import EFTLikelihood, TracerSpec
 from ..likelihood.parambasis import WestCoastBasis
 from ..likelihood.covariance import GaussianCovariance, Multipole
 from ..boltzmann.eh98 import EisensteinHuProvider
+from ..boltzmann.emulator import DEFAULT_PK_ARTIFACT, SolverEmulatorProvider
 
 FIDUCIAL = dict(omega_b=0.02237, omega_cdm=0.1200, h=0.6777, ln10As=3.044, ns=0.9649)
 TRACERS = {
@@ -47,6 +51,18 @@ TRACERS = {
 }
 COSMO_NAMES = ["omega_cdm", "h", "ln10As"]
 BIAS_NAMES = ["b1", "b2", "b4"]
+
+
+def synthetic_mask_file(path: Path, smask: float) -> Path:
+    """Plausible survey-mask multipoles Q_q(s): monopole ~1 at small s with a
+    smooth roll-off, small anisotropic Q2/Q4 contributions."""
+    s = np.geomspace(3.0, 4000.0, 2000)
+    roll = 1.0 / (1.0 + (s / smask) ** 3)
+    q0 = roll
+    q2 = 0.08 * (s / smask) / (1.0 + (s / smask) ** 4)
+    q4 = 0.03 * (s / smask) ** 2 / (1.0 + (s / smask) ** 5)
+    np.savetxt(path, np.column_stack([s, q0, q2, q4]), header="s Q0 Q2 Q4")
+    return path
 
 
 @dataclass(eq=False)
@@ -125,35 +141,46 @@ def _fiducial_multipoles(pipe: TracerPipeline, provider, params, basis, binning)
     return ls, np.asarray(kret), plk.double().cpu().numpy()
 
 
+def _make_provider(cfg, zeff, om_fid, cosmology: str):
+    da_fid, h_fid = lcdm_da(om_fid, zeff), lcdm_hubble(om_fid, zeff)
+    if cosmology == "solver_emulator":
+        return SolverEmulatorProvider.load(cfg=cfg, zeff=zeff, da_fid=da_fid, h_fid=h_fid)
+    return EisensteinHuProvider(cfg=cfg, zeff=zeff, da_fid=da_fid, h_fid=h_fid)
+
+
+def _resolve_cosmology(cosmology: str | None) -> str:
+    if cosmology is not None:
+        return cosmology
+    # the solver emulator when its artifact ships, Eisenstein–Hu otherwise
+    return "solver_emulator" if DEFAULT_PK_ARTIFACT.exists() else "eh98"
+
+
 def build_flagship(
-    workdir, dtype=torch.float64, with_window: bool = False,
-    cosmology: str = "eh98", device=None, quadform: str = "kernel",
+    workdir, dtype=torch.float64, with_window: bool = True, window_nmax: int = 2048,
+    cosmology: str | None = None, device=None, quadform: str = "kernel",
     ap_gl: int = 16,
 ) -> FlagshipModel:
     """Build the flagship model on ``device`` (default: the card; raises when
     there is none — pass ``device="cpu"`` for the plain PyTorch path).
 
+    with_window, window_nmax : the survey window and its FFTLog size.
+    cosmology : "solver_emulator", "eh98", or None (the emulator when its
+        artifact ships).
     quadform : "kernel" (the fused CUDA quadratic forms on the card) or
         "plain" (their two-einsum plain version, an independent reference).
     ap_gl : Gauss–Legendre nodes of the float32 AP quadrature.
     """
-    if with_window:
-        raise NotImplementedError(
-            "build_flagship(with_window=True): the survey window is not ported "
-            "yet (ROADMAP A1)")
-    if cosmology != "eh98":
-        raise NotImplementedError(
-            f"build_flagship(cosmology={cosmology!r}): only the Eisenstein-Hu "
-            "provider is ported; the solver emulator is ROADMAP A3")
     device = resolve_device(device)
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     cache = workdir / "cache"
+    cosmology = _resolve_cosmology(cosmology)
 
     # mock data/cov are generated from the model itself: a workdir built for
-    # a different cosmology provider (or theory version) must regenerate
+    # a different cosmology provider, window or theory version must regenerate
     meta_file = workdir / "flagship_meta.json"
-    meta = {"cosmology": cosmology, "version": 2}
+    meta = {"cosmology": cosmology, "version": 2, "with_window": with_window,
+            "window_nmax": window_nmax if with_window else None}
     stale = True
     if meta_file.exists():
         try:
@@ -172,12 +199,19 @@ def build_flagship(
         tc = TRACERS[name]
         nl = max(tc["ls"]) // 2 + 1
         cfg = EFTConfig(nl=nl, no=nl, nd_a=tc["nd"])
+        window = None
+        if with_window:
+            mask_file = workdir / f"mask_{name}.txt"
+            if not mask_file.exists():
+                synthetic_mask_file(mask_file, tc["smask"])
+            window = dict(window_configspace_file=mask_file, nmax=window_nmax)
         return TracerPipeline.build(
             cfg,
             zeff=tc["zeff"],
             with_irresum=True,
             apeffect=dict(om_ap=om_fid, z_ap=tc["zeff"], rdrag_ap=147.66,
                           hubble_ap=FIDUCIAL["h"], n_gl=ap_gl),
+            window=window,
             cache_dir=cache,
             device=device,
             dtype=pipe_dtype,
@@ -190,10 +224,7 @@ def build_flagship(
     pipes = {}
     for name, tc in TRACERS.items():
         pipes[name] = make_pipeline(name, dtype)
-        cfg = pipes[name].cfg
-        providers[name] = EisensteinHuProvider(
-            cfg=cfg, zeff=tc["zeff"], da_fid=lcdm_da(om_fid, tc["zeff"]),
-            h_fid=lcdm_hubble(om_fid, tc["zeff"]))
+        providers[name] = _make_provider(pipes[name].cfg, tc["zeff"], om_fid, cosmology)
         kout[name] = np.arange(0.01, 0.2049, 0.005)
         fid_params.update({f"{name}_{b}": tc[b] for b in BIAS_NAMES})
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import math
 import numpy as np
 import torch
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from ..models.config import EFTConfig
 from ..models.pipeline import CosmoInputs
@@ -158,11 +158,15 @@ class EisensteinHuProvider:
     da_fid: float | None = None  # dimensionless H0·DA of the fiducial cosmology
     h_fid: float | None = None   # dimensionless H/H0 of the fiducial cosmology
     use_ap: bool = True
+    _kin: dict = field(default_factory=dict, repr=False)  # (device, dtype) → cfg.kin
 
     def inputs(self, params) -> CosmoInputs:
         """``params``: name → (W,) tensor, all on one device in one dtype."""
         h = params["h"]
-        kin = torch.as_tensor(self.cfg.kin, dtype=h.dtype, device=h.device)
+        key = (h.device, h.dtype)
+        if key not in self._kin:
+            self._kin[key] = torch.as_tensor(self.cfg.kin, dtype=h.dtype, device=h.device)
+        kin = self._kin[key]
         pk, f, e, da, _ = eh98_pk(
             kin, params["omega_b"], params["omega_cdm"], h,
             params["ln10As"], params["ns"], self.zeff,

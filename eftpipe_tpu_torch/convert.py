@@ -4,11 +4,12 @@ The port never imports the JAX package; a caller that has it (the parity
 tests) extracts its Phase-A state as nested dicts of NumPy arrays and hands
 them over here, so that both sides compute from IDENTICAL constants:
 
-* :func:`pipeline_from_numpy` — the ``nt/bt/rt/at`` table dicts of a
-  ``TracerPipeline`` (dataclass members such as the FFTLog plans and the
-  spline table given as dicts of their fields);
+* :func:`pipeline_from_numpy` — the ``nt/bt/rt/at/wt/wmt/ft`` table dicts
+  of a ``TracerPipeline`` (dataclass members such as the FFTLog plans and the
+  spline table given as dicts of their fields; the icc tables inside ``wt``);
 * :func:`likelihood_from_numpy` — the likelihood's data vector, inverse
-  covariance, gather indices, binning matrices and marginal prior.
+  covariance, gather indices, binning matrices and marginal prior;
+* :func:`emulator_from_numpy` — a ``PkEmulator`` from its arrays.
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ from . import resolve_device, to_device
 from .likelihood.likelihood import EFTLikelihood, TracerSpec, _TracerRuntime
 from .likelihood.marginal import MarginalSetup
 from .likelihood.parambasis import WestCoastBasis
+from .boltzmann.emulator import PkEmulator
 from .models.config import EFTConfig
+from .models.fiber import fiber_tables_to
 from .models.nonlinear import nonlinear_tables_to
 from .models.pipeline import TracerPipeline
+from .models.window import window_tables_to, window_matrix_tables_to
 from .ops.fftlog import FFTLogPlan
 from .ops.interp import SplineTable
 
@@ -34,8 +38,9 @@ def _plan(d) -> FFTLogPlan:
 def pipeline_from_numpy(cfg: EFTConfig, tables: dict, device=None,
                         dtype=torch.float64, zeff: float | None = None,
                         quadform: str = "kernel") -> TracerPipeline:
-    """A ``TracerPipeline`` from ``tables = {"nt", "bt", "rt", "at"}`` (the
-    last two optional).  ``nt["plan_cf"]`` may be ``None`` or absent when it
+    """A ``TracerPipeline`` from ``tables = {"nt", "bt", "rt", "at", "wt",
+    "wmt", "ft"}`` (all but the first two optional; ``wt["icc"]`` holds the
+    coupled integral-constraint tables, or None).  ``nt["plan_cf"]`` may be ``None`` or absent when it
     is the same plan as ``nt["plan_pk"]``.  Entries of the JAX tables that
     this slice does not use (the low-rank factors) are dropped."""
     device = resolve_device(device)
@@ -50,13 +55,30 @@ def pipeline_from_numpy(cfg: EFTConfig, tables: dict, device=None,
     if at is not None:
         sp = at["spline"]
         at = dict(at, spline=sp if isinstance(sp, SplineTable) else SplineTable(**sp))
+    stages = {}
+    for key, to in (("wt", window_tables_to), ("wmt", window_matrix_tables_to),
+                    ("ft", fiber_tables_to)):
+        if tables.get(key) is not None:
+            stages[key] = to(tables[key], device, dtype)
     return TracerPipeline(
         cfg=cfg,
         nt=nonlinear_tables_to(nt, device, dtype),
         bt=to_device(bt, device, dtype),
         rt=to_device(rt, device, dtype) if rt is not None else None,
         at=to_device(at, device, dtype) if at is not None else None,
-        zeff=zeff, device=device, dtype=dtype, quadform=quadform)
+        **stages, zeff=zeff, device=device, dtype=dtype, quadform=quadform)
+
+
+def emulator_from_numpy(state: dict) -> PkEmulator:
+    """A ``PkEmulator`` from ``state``, a dict of its fields (NumPy arrays and
+    scalars, e.g. the ``vars()`` of the JAX package's emulator); fields the
+    port does not know are refused."""
+    names = {f for f in PkEmulator.__dataclass_fields__ if not f.startswith("_")}
+    unknown = set(state) - names
+    if unknown:
+        raise ValueError(f"unknown PkEmulator fields {sorted(unknown)}")
+    return PkEmulator(**{k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
+                         for k, v in state.items()})
 
 
 def likelihood_from_numpy(pipelines: dict, state: dict) -> EFTLikelihood:

@@ -18,7 +18,7 @@ from __future__ import annotations
 import math
 import numpy as np
 import torch
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping
 
 
@@ -42,6 +42,9 @@ class MarginalSetup:
     locs: list[Any]
     scales: list[Any]
     jeffreys: bool = False
+    # constant entries as tensors, made once per (value, device, dtype): a
+    # number put on the card per call is a copy that synchronises the stream
+    _consts: dict = field(default_factory=dict, compare=False, repr=False)
 
     @classmethod
     def from_config(cls, prior: Mapping[str, Mapping | None], ordering: list[str],
@@ -73,8 +76,12 @@ class MarginalSetup:
         and in the dtype of ``like``; entries that are callables of the
         parameters carry the walker axis (marginal.py:60-77)."""
         def value(entry):
-            v = entry(params) if callable(entry) else entry
-            return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+            if callable(entry):
+                return torch.as_tensor(entry(params), dtype=like.dtype, device=like.device)
+            key = (entry, like.device, like.dtype)
+            if key not in self._consts:
+                self._consts[key] = torch.as_tensor(entry, dtype=like.dtype, device=like.device)
+            return self._consts[key]
 
         mu = torch.stack(torch.broadcast_tensors(*[value(loc) for loc in self.locs]), dim=-1)
         # upstream parity (marginal.py:69-77): a single infinite scale zeroes

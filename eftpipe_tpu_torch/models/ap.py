@@ -16,7 +16,8 @@ one-hot comparisons.
 Quadrature: float32 uses Gauss–Legendre nodes (``n_gl`` of
 ``build_ap_tables``, default 16), float64 the upstream 200-point trapezoid —
 the same rule as the JAX package (there an environment variable, here an
-argument).
+argument).  ``quadrature="gauss_legendre"`` puts every dtype on the
+Gauss–Legendre nodes, so that float32 and float64 differ by rounding only.
 """
 
 from __future__ import annotations
@@ -57,14 +58,21 @@ def ap_tables_numpy(
     nlmax: int | None = None,
     ap_st: bool = False,
     n_gl: int = 16,
+    quadrature: str = "by_dtype",
 ) -> dict:
     """Fiducial background + fixed-µ-grid constants.
 
     Either (da_fid, h_fid) directly or (om_ap, z_ap) to compute them from flat
     LCDM (pybird.py:1522-1530).  ``rdrag_ap``/``hubble_ap`` feed the derived
     α⊥/α∥ (pybird.py:1564-1579).  ``n_gl`` Gauss–Legendre nodes for the
-    float32 quadrature (0: trapezoid for every dtype).
+    float32 quadrature (0: trapezoid for every dtype); ``quadrature``
+    ``"by_dtype"`` (that rule) or ``"gauss_legendre"`` (those nodes for every
+    dtype).
     """
+    if quadrature not in ("by_dtype", "gauss_legendre"):
+        raise ValueError(f"unknown AP quadrature {quadrature!r}")
+    if quadrature == "gauss_legendre" and n_gl <= 0:
+        raise ValueError("quadrature='gauss_legendre' needs n_gl > 0")
     if da_fid is None or h_fid is None:
         if om_ap is None or z_ap is None:
             raise ValueError("need (da_fid, h_fid) or (om_ap, z_ap)")
@@ -96,6 +104,8 @@ def ap_tables_numpy(
         mu_gl, proj_gl = nodes_weights(0.5 * (x_gl + 1.0), 0.5 * w_gl)
     else:
         mu_gl = proj_gl = None
+    if quadrature == "gauss_legendre":
+        mu, proj = mu_gl, proj_gl
     return dict(
         da_fid=float(da_fid),
         h_fid=float(h_fid),

@@ -2,11 +2,13 @@
 
 The analogue of upstream ``EFTLeafKernel.calculate_power_spectrum``
 (eftpipe/theory.py:557-609): cosmology inputs → bird → IR resummation → AP →
-per-(binned) products.  All Phase-A tables are built once, on the host, and
-moved to the device in :meth:`TracerPipeline.build`; the per-evaluation
-methods run on a whole walker batch (leading axis W).
+window (+icc) → window matrix → fiber → per-(binned) products.  All Phase-A
+tables are built once, on the host, and moved to the device in
+:meth:`TracerPipeline.build`; the per-evaluation methods run on a whole
+walker batch (leading axis W).
 
-Stages of the JAX pipeline that are not ported yet raise
+Parts of the JAX pipeline that are not ported yet (the dotted window-builder
+extension point, the template-fit fast path, chained multipoles) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -23,15 +25,12 @@ from .nonlinear import build_nonlinear_tables, nonlinear_pscf
 from .bird import build_bird_tables, assemble_bird, BirdState
 from .resum import build_resum_tables, resum_ps
 from .ap import build_ap_tables, ap_transform
+from .window import (build_window_tables, window_tables_to, apply_window,
+                     build_window_matrix_tables, window_matrix_tables_to, apply_window_matrix)
+from .icc import build_icc_tables
+from .fiber import build_fiber_tables, fiber_tables_to, apply_fiber
 from .transforms import build_binning_matrix, apply_binning
 from ..ops.precision import stage_precision
-
-_UNPORTED = {
-    "window": "the configuration-space survey window (ROADMAP A1)",
-    "window_matrix": "the window matrix (ROADMAP A6)",
-    "icc": "the integral constraint (ROADMAP A6)",
-    "fiber": "the fiber-collision correction (ROADMAP A6)",
-}
 
 
 class CosmoInputs(NamedTuple):
@@ -55,6 +54,9 @@ class TracerPipeline:
     bt: dict
     rt: dict | None = None
     at: dict | None = None
+    wt: dict | None = None
+    wmt: dict | None = None
+    ft: dict | None = None
     with_rsd: bool = True
     zeff: float | None = None
     device: Any = None
@@ -80,12 +82,14 @@ class TracerPipeline:
     ) -> "TracerPipeline":
         """Build all Phase-A tables and move them to ``device`` (default: the
         card; raises when there is none).  ``quadform`` selects the dense
-        quadratic forms' route, see :func:`..nonlinear.nonlinear_pscf`."""
-        for name, value in (("window", window), ("window_matrix", window_matrix),
-                            ("icc", icc), ("fiber", fiber)):
-            if value:
-                raise NotImplementedError(
-                    f"TracerPipeline.build: {_UNPORTED[name]} is not ported yet")
+        quadratic forms' route, see :func:`..nonlinear.nonlinear_pscf`.
+        ``window``/``window_matrix``/``icc``/``fiber`` are the keyword
+        arguments of the matching host builders; the icc tables are coupled
+        into the window."""
+        if window and window.get("builder"):
+            raise NotImplementedError(
+                "TracerPipeline.build: the dotted window['builder'] extension "
+                "point belongs to the orchestration layer, not ported yet (ROADMAP A7)")
         device = resolve_device(device)
         nt = build_nonlinear_tables(cfg, device, dtype, cache_dir=cache_dir)
         bt = build_bird_tables(cfg, device, dtype)
@@ -94,8 +98,20 @@ class TracerPipeline:
             kwargs = with_irresum if isinstance(with_irresum, dict) else {}
             rt = build_resum_tables(cfg, device, dtype, **kwargs)
         at = build_ap_tables(cfg, device, dtype, **apeffect) if apeffect else None
-        return cls(cfg=cfg, nt=nt, bt=bt, rt=rt, at=at, with_rsd=with_rsd,
-                   zeff=zeff, device=device, dtype=dtype, quadform=quadform)
+        icc_tables = build_icc_tables(cfg, cache_dir=cache_dir, **icc) if icc else None
+        wt = wmt = ft = None
+        if window:
+            window = {k: v for k, v in window.items() if k != "builder"}
+            wt = window_tables_to(build_window_tables(
+                cfg, cache_dir=cache_dir, icc_tables=icc_tables, **window), device, dtype)
+        if window_matrix:
+            wmt = window_matrix_tables_to(
+                build_window_matrix_tables(cfg, **window_matrix), device, dtype)
+        if fiber:
+            ft = fiber_tables_to(build_fiber_tables(cfg, **fiber), device, dtype)
+        return cls(cfg=cfg, nt=nt, bt=bt, rt=rt, at=at, wt=wt, wmt=wmt, ft=ft,
+                   with_rsd=with_rsd, zeff=zeff, device=device, dtype=dtype,
+                   quadform=quadform)
 
     def freeze_template(self, plin):
         raise NotImplementedError(
@@ -128,6 +144,23 @@ class TracerPipeline:
             with stage_precision("APeffect"):
                 bird = ap_transform(self.at, cfg, bird, inputs.qperp, inputs.qpar)
             snaps["APeffect"] = bird
+        if stop_after == "APeffect":
+            return bird
+        if self.wt is not None:
+            with stage_precision("window"):
+                bird = apply_window(self.wt, cfg, bird)
+            snaps["window"] = bird
+        if stop_after == "window":
+            return bird
+        if self.wmt is not None:
+            bird = apply_window_matrix(self.wmt, cfg, bird)
+            snaps["window_matrix"] = bird
+        if stop_after == "window_matrix":
+            return bird
+        if self.ft is not None:
+            with stage_precision("fiber"):
+                bird = apply_fiber(self.ft, cfg, bird)
+            snaps["fiber"] = bird
         if with_snapshots:
             return bird, snaps
         return bird

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from scipy.interpolate import CubicSpline
 
 
@@ -71,6 +71,9 @@ class MatmulInterp:
     to an FMA, so the two packages agree to a few ulp, not bitwise.)"""
 
     xp: np.ndarray  # (n,) sorted grid
+    # the grid as a tensor, made once per (device, dtype): a host-to-device
+    # copy per call would synchronise the stream
+    _grids: dict = field(default_factory=dict, compare=False, repr=False)
 
     @classmethod
     def build(cls, xp) -> "MatmulInterp":
@@ -79,11 +82,17 @@ class MatmulInterp:
             raise ValueError("MatmulInterp needs a strictly increasing grid")
         return cls(xp=xp)
 
+    def _grid(self, like):
+        key = (like.device, like.dtype)
+        if key not in self._grids:
+            self._grids[key] = torch.as_tensor(self.xp, dtype=like.dtype, device=like.device)
+        return self._grids[key]
+
     def interp(self, q, fp):
         """Interpolate ``fp`` at ``q``; q: (...,) queries, fp: (..., n)
         data values (leading axes broadcast).  Clamps to the endpoint values
         outside the grid."""
-        xp = torch.as_tensor(self.xp, dtype=q.dtype, device=q.device)
+        xp = self._grid(q)
         n = self.xp.size
         qshape = q.shape
         qf = q.reshape(-1)
@@ -97,6 +106,21 @@ class MatmulInterp:
         out = torch.where(qf <= xp[0], fp[..., :1], out)
         out = torch.where(qf >= xp[-1], fp[..., -1:], out)
         return out.reshape(out.shape[:-1] + qshape)
+
+    def interp_rows(self, q, fp):
+        """Row-wise interpolation: q (..., m) queries and fp (..., n) data
+        with the SAME leading axes (one query grid per walker) → (..., m).
+        The gather form of :meth:`interp`'s formula, segment choice and
+        clamping (a per-walker one-hot would be (W, m, n) large)."""
+        xp = self._grid(q)
+        n = self.xp.size
+        # #{j in [1, n-1): xp[j] <= q}, as segment_index
+        idx = torch.searchsorted(xp[1 : n - 1].contiguous(), q.contiguous(), right=True)
+        x0, x1 = xp[idx], xp[idx + 1]
+        f0, f1 = torch.gather(fp, -1, idx), torch.gather(fp, -1, idx + 1)
+        out = f0 + ((q - x0) / (x1 - x0)) * (f1 - f0)
+        out = torch.where(q <= xp[0], fp[..., :1], out)
+        return torch.where(q >= xp[-1], fp[..., -1:], out)
 
 
 @dataclass(frozen=True)

@@ -20,6 +20,6 @@ from contextlib import nullcontext
 
 def stage_precision(name: str):
     """No-op context around the stage ``name`` ("nonlinear", "IRresum",
-    "APeffect", "binning", "like"): all stages run IEEE float32 (or float64)
-    products."""
+    "APeffect", "window", "fiber", "binning", "like", "emu"): all stages run
+    IEEE float32 (or float64) products."""
     return nullcontext()

@@ -1,6 +1,8 @@
-"""The slice as a whole: the port's flagship ``logp`` against the JAX
-package's on seeded points at the full default widths (float64), its float32
-path against its float64 path, and the Eisenstein–Hu provider."""
+"""The port as a whole: the flagship ``logp`` against the JAX package's on
+seeded points at the full default widths (float64), its float32 path against
+its float64 path, and the Eisenstein–Hu provider.  Two configurations: the
+default (survey window, solver-emulator cosmology — the JAX package's
+default) and the lite one (no window, Eisenstein–Hu)."""
 
 import numpy as np
 import pytest
@@ -27,15 +29,71 @@ def seeded_points(theta0, n=4, seed=0):
     return theta0[None, :] * (1.0 + 1e-3 * rng.standard_normal((n, theta0.size)))
 
 
+LITE = dict(with_window=False, cosmology="eh98")
+
+
 @pytest.fixture(scope="module")
 def models(tmp_path_factory):
-    """Each package builds its own flagship — Phase-A tables, mock data and
-    covariance — in its own workdir; the JAX side once per module."""
+    """Each package builds its own lite flagship — Phase-A tables, mock data
+    and covariance — in its own workdir; the JAX side once per module."""
     jmodel = jflag.build_flagship(tmp_path_factory.mktemp("flagship_jax"), dtype=jnp.float64,
-                                  with_window=False, cosmology="eh98")
+                                  **LITE)
     twork = tmp_path_factory.mktemp("flagship_torch")
+    tmodel = tflag.build_flagship(twork, dtype=torch.float64, device="cpu", **LITE)
+    return jmodel, tmodel, twork
+
+
+@pytest.fixture(scope="module")
+def default_models(tmp_path_factory):
+    """Both packages' DEFAULT flagship (window, solver emulator), each in its
+    own workdir with its own mock data and covariance."""
+    jmodel = jflag.build_flagship(tmp_path_factory.mktemp("default_jax"), dtype=jnp.float64)
+    twork = tmp_path_factory.mktemp("default_torch")
     tmodel = tflag.build_flagship(twork, dtype=torch.float64, device="cpu")
     return jmodel, tmodel, twork
+
+
+def test_default_flagship_is_the_jax_default(default_models):
+    jmodel, tmodel, twork = default_models
+    for name, spec in tmodel.like.tracers.items():
+        assert type(tmodel.providers[name]).__name__ == "SolverEmulatorProvider"
+        assert type(jmodel.providers[name]).__name__ == "SolverEmulatorProvider"
+        pipe, jpipe_ = spec.pipeline, jmodel.like.tracers[name].pipeline
+        assert pipe.wt is not None and pipe.wt["psn"] is None
+        assert (pipe.wmt, pipe.ft) == (None, None)
+        np.testing.assert_allclose(pipe.wt["wmat"].numpy(), jpipe_.wt["wmat"], rtol=1e-12,
+                                   atol=1e-12 * np.abs(jpipe_.wt["wmat"]).max())
+        assert pipe.wt["wmat"].shape[:2] == (pipe.cfg.nl, pipe.cfg.nl)
+    np.testing.assert_allclose(tmodel.like.data_vector, jmodel.like.data_vector, rtol=1e-9)
+    np.testing.assert_allclose(tmodel.like.invcov, jmodel.like.invcov, rtol=1e-7,
+                               atol=1e-9 * np.abs(jmodel.like.invcov).max())
+    meta = __import__("json").loads((twork / "flagship_meta.json").read_text())
+    assert meta["with_window"] is True and meta["cosmology"] == "solver_emulator"
+    assert meta["window_nmax"] == 2048
+
+
+def test_default_flagship_logp_matches_jax_float64(default_models):
+    """|Δlogp| ≤ 1e-8·|logp| on 4 seeded points (float64)."""
+    jmodel, tmodel, _ = default_models
+    thetas = seeded_points(tmodel.theta0, seed=2)
+    want = np.asarray(jax.vmap(jmodel.logp)(jnp.asarray(thetas)))
+    got = tmodel.logp(thetas)
+    assert got.shape == (4,) and np.isfinite(want).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-8, atol=0)
+
+
+def test_default_flagship_float32_within_budget(default_models, tmp_path):
+    """float32 against float64 on 16 seeded points: |Δlogp| < 0.02; a
+    workdir built for another configuration regenerates its mock data."""
+    _, tmodel, twork = default_models
+    m32 = tflag.build_flagship(twork, dtype=torch.float32, device="cpu")
+    thetas = seeded_points(tmodel.theta0, n=16, seed=3)
+    d = np.abs(m32.logp(thetas).double().numpy() - tmodel.logp(thetas).numpy())
+    assert d.max() < 0.02, d.max()
+    lite = tflag.build_flagship(tmp_path, dtype=torch.float64, device="cpu", **LITE)
+    again = tflag.build_flagship(tmp_path, dtype=torch.float64, device="cpu")
+    assert not np.allclose(lite.like.data_vector, again.like.data_vector)
+    np.testing.assert_allclose(again.like.data_vector, tmodel.like.data_vector, rtol=1e-12)
 
 
 def test_flagship_static_state_matches(models):
@@ -85,14 +143,15 @@ def test_flagship_float32_within_budget_of_float64(models):
     """float32 (GL-16 AP quadrature, IEEE products) against float64 on 16
     seeded points: |Δlogp| < 0.02, the JAX package's accuracy budget."""
     _, tmodel, twork = models
-    m32 = tflag.build_flagship(twork, dtype=torch.float32, device="cpu")
+    m32 = tflag.build_flagship(twork, dtype=torch.float32, device="cpu", **LITE)
     thetas = seeded_points(tmodel.theta0, n=16, seed=1)
     lp32 = m32.logp(thetas)
     assert lp32.dtype == torch.float32
     d = np.abs(lp32.double().numpy() - tmodel.logp(thetas).numpy())
     assert d.max() < 0.02, d.max()
     # the plain route gives the same float32 numbers as the public op on the CPU
-    plain = tflag.build_flagship(twork, dtype=torch.float32, device="cpu", quadform="plain")
+    plain = tflag.build_flagship(twork, dtype=torch.float32, device="cpu", quadform="plain",
+                                 **LITE)
     np.testing.assert_array_equal(plain.logp(thetas).numpy(), lp32.numpy())
 
 

@@ -155,6 +155,11 @@ def test_marginal_setup_and_prior_forms():
     jmu, jsig = js.mu_sigma_inv({})
     close(mu.numpy(), np.broadcast_to(np.asarray(jmu), mu.shape))
     close(sig.numpy(), np.broadcast_to(np.asarray(jsig), sig.shape))
+    # constant entries are made once per (value, device, dtype), then reused
+    n_consts = len(ts._consts)
+    again = ts.mu_sigma_inv({}, like)
+    assert n_consts > 0 and len(ts._consts) == n_consts
+    assert torch.equal(again[0], mu) and torch.equal(again[1], sig)
     # a callable entry carries the walker axis; one infinite scale zeroes Σ⁻¹
     call = tmarg.MarginalSetup.from_config(
         {"A_b3": {"loc": lambda p: 2.0 * p["A_b1"], "scale": 2.0}}, ordering)

@@ -106,6 +106,12 @@ def test_matmul_interp_bitwise(seed):
     np.testing.assert_allclose(got, want, rtol=0, atol=ulp4)
     theirs = jinterp.MatmulInterp.build(xp).interp(jnp.asarray(q), jnp.asarray(fp))
     np.testing.assert_allclose(got, np.asarray(theirs), rtol=0, atol=ulp4)
+    # the row-wise gather form (one query grid per leading index) is the same
+    # formula, and the grid's tensor is made once per device and dtype
+    lut = tinterp.MatmulInterp.build(xp)
+    rows = lut.interp_rows(t(np.broadcast_to(q, fp.shape[:1] + q.shape).copy()), t(fp))
+    np.testing.assert_array_equal(rows.numpy(), gather)
+    assert lut._grid(t(q)) is lut._grid(t(q))
     with pytest.raises(ValueError):
         tinterp.MatmulInterp.build(xp[::-1])
 
