@@ -9,11 +9,17 @@ Phases, each printing one JSON line:
 
 1. ``device``  — the card's name and power limit (``nvidia-smi``), versions.
 2. ``build``   — compiles ``eftpipe_tpu_torch/csrc/*.cu`` with ``nvcc`` for
-   sm_90a into ``build/eftpipe_tpu_torch/`` (seconds, registers, spills).
+   sm_90a into ``build/eftpipe_tpu_torch/`` (seconds, registers and spills
+   per source).
 3. ``kernel_checks`` — every CUDA kernel against its plain PyTorch version in
-   float64 on the same inputs: float32 at the flagship's shapes and at a small
-   ragged shape, float64 at the small shape (separates an indexing fault from
-   float32 rounding).  Times by ``torch.cuda.Event`` over distinct inputs.
+   float64 on the same inputs: float32 (``quadform_tc.cu``, 3xTF32 on the
+   tensor cores) at the flagship's shapes and at a small ragged shape,
+   float64 (``quadform.cu``) at the small shape (separates an indexing fault
+   from rounding).  The matrices' kernel layout is made once per shape, as
+   the model does it for its tables and for the fold check's complex
+   matrices, and the timed calls reuse it (``prepared``, ``ms``); ``fly_ms``
+   times the same calls with the layout made in each.  Times by
+   ``torch.cuda.Event`` over distinct inputs.
 4. ``main_path`` — builds the default flagship model (two tracers, full
    default widths, survey window, solver-emulator cosmology, float32, dense
    quadratic forms through the kernels) on the card, evaluates ``logp`` at 64
@@ -68,13 +74,14 @@ WORKDIR = os.path.join(ROOT, "chip_smoke_workdir")
 GOLDENS = os.path.join(ROOT, "tests", "goldens")
 
 # published peaks of one H100 SXM (data sheet, dense): device-memory rate, the
-# FMA rates outside the tensor cores (what the kernels use) and the TF32
-# tensor-core rate, of which a 3xTF32 split (float32-grade products) gets a third
+# FMA rates outside the tensor cores (the float64 kernels) and the TF32
+# tensor-core rate, of which the float32 kernels' 3xTF32 split (three TF32
+# products per float32-grade product) gets a third
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-PEAK_NAME = {torch.float32: "67 TFLOP/s float32 (non-tensor)",
-             torch.float64: "34 TFLOP/s float64 (non-tensor)"}
+FMA_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 TF32_FLOPS = 495e12
+PEAK_NAME = {torch.float32: "3xTF32: three TF32 tensor-core passes at 495 TFLOP/s",
+             torch.float64: "34 TFLOP/s float64 (non-tensor)"}
 LOGP_ABS_BUDGET = 0.02
 MULTIPOLE_REL_BUDGET = 1e-4  # tests/test_accuracy_budget.py
 CHUNK_TRIALS = (256, 512)  # walker chunks tried, beside the whole batch
@@ -84,13 +91,31 @@ REPLACES = {
     "qf_real": "eftpipe_tpu/ops/pallas_kernels.py:313",
     "cf_half": "eftpipe_tpu/ops/pallas_kernels.py:58",
 }
-SOURCE = "eftpipe_tpu_torch/csrc/quadform.cu"
+SOURCE = {torch.float32: "eftpipe_tpu_torch/csrc/quadform_tc.cu",
+          torch.float64: "eftpipe_tpu_torch/csrc/quadform.cu"}
 
 
 def emit(phase: str, **payload) -> dict:
     line = dict(phase=phase, **payload)
     print(json.dumps(line), flush=True)
     return line
+
+
+def ptxas_summary(log: str) -> list:
+    """Registers and spills of each kernel in ``nvcc -Xptxas -v`` output."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = dict(kernel=line.split("'")[1], registers=None, spill_stores=None,
+                       spill_loads=None)
+            rows.append(cur)
+        elif cur is not None and "spill stores" in line:
+            parts = line.replace(",", "").split()
+            cur["spill_stores"] = int(parts[parts.index("spill") - 2])
+            cur["spill_loads"] = int(parts[parts.index("loads") - 3])
+        elif cur is not None and "Used " in line and " registers" in line:
+            cur["registers"] = int(line.split("Used ")[1].split(" registers")[0])
+    return rows
 
 
 def nvidia_smi_line() -> str:
@@ -118,17 +143,21 @@ def event_ms(fn, inputs, warmup: int = 2) -> float:
 
 def bound(kernel: str, dtype, nw: int, n: int, s: int, bl: int):
     """Least time for the work: each input read once, each output written
-    once, against the operations at the card's peak for the type.  Only the
-    symmetric part of M enters the forms, so the operations counted are those
-    of its lower triangle: N(N+1)/2 multiply-adds per vector and output, plus
-    the reduction against z."""
+    once, against the operations at the card's peak for the kernel's route
+    (float32: three TF32 tensor-core products per product, float64: the
+    FMA pipe).  Only the symmetric part of M enters the forms, so the
+    operations counted are those of its lower triangle: N(N+1)/2
+    multiply-adds per vector and output, plus the reduction against z.
+    Also returns the float32-FMA bound of the same operations."""
     sz = torch.empty((), dtype=dtype).element_size()
     nz = 1 if kernel == "qf_real" else 2
     nbytes = sz * (bl * n * n + nz * nw * n * s + nz * nw * bl * s)
     flops = nz * (1.0 * nw * bl * n * (n + 1) * s + 2.0 * nz * nw * bl * n * s)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), flops, nbytes
+    t_fma = flops / FMA_FLOPS[dtype] * 1e3
+    t_ops = 3.0 * flops / TF32_FLOPS * 1e3 if dtype == torch.float32 else t_fma
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), flops, nbytes,
+            t_fma)
 
 
 def check_kernel(kernel: str, dtype, nw: int, n: int, s: int, bl: int,
@@ -141,30 +170,39 @@ def check_kernel(kernel: str, dtype, nw: int, n: int, s: int, bl: int,
 
     nz = 1 if kernel == "qf_real" else 2
     m = rand(bl, n, n).to(dtype)
+    # the kernel layout of m, made once as the model makes it for its tables
+    lay = qf.kernel_matrices(m)
     # distinct inputs for every timed call; the first is also the checked one
     zs = [tuple(rand(nw, n, s).to(dtype) for _ in range(nz)) for _ in range(n_timed)]
     if kernel == "qf_real":
-        run = lambda z: qf.qf_real_cuda(z[0], m)
+        run = lambda z: qf.qf_real_cuda(z[0], m, lay)
+        run_fly = lambda z: qf.qf_real_cuda(z[0], m)
         plain = lambda z: qf.qf_real_plain(z[0], m)
         ref = qf.qf_real_plain(zs[0][0].double(), m.double())
         got = run(zs[0])
+        fly = qf.qf_real_cuda(zs[0][0], m)  # layout made on the fly
         library = lambda z: torch.einsum("wns,bnm,wms->wbs", z[0], m, z[0])
         pairs = [(got, ref)]
+        same = bool(torch.equal(fly, got))
     else:
-        run = lambda z: qf.cf_half_cuda(m, z[0], z[1])
+        run = lambda z: qf.cf_half_cuda(m, z[0], z[1], lay)
+        run_fly = lambda z: qf.cf_half_cuda(m, z[0], z[1])
         plain = lambda z: qf.cf_half_plain(m, z[0], z[1])
         ref = qf.cf_half_plain(m.double(), zs[0][0].double(), zs[0][1].double())
         got = run(zs[0])
+        fly = qf.cf_half_cuda(m, zs[0][0], zs[0][1])  # layout made on the fly
         mc = m.to(torch.complex64 if dtype == torch.float32 else torch.complex128)
         library = lambda z: torch.einsum(
             "wns,bnm,wms->wbs", torch.complex(z[0], z[1]), mc, torch.complex(z[0], z[1]))
         pairs = list(zip(got, ref))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(fly, got))
+    # `same`: the two launches agree bitwise (sums in a fixed order)
     torch.cuda.synchronize()
     if dtype == torch.float32:
         rtol, atol_rel = 2e-4, 2e-3   # sums of N² terms taken in another order
     else:
         rtol, atol_rel = 1e-10, 1e-10
-    max_abs_err, ok = 0.0, True
+    max_abs_err, ok = 0.0, same
     for g, r in pairs:
         if g.shape != r.shape or not torch.isfinite(g).all():
             ok = False
@@ -178,19 +216,20 @@ def check_kernel(kernel: str, dtype, nw: int, n: int, s: int, bl: int,
     lib_ok = bool(((lib_check.real if lib_check.is_complex() else lib_check).double()
                    - pairs[0][1]).abs().max() <= 1e-2 * scale)
     kernel_ms = event_ms(run, zs)
+    fly_ms = event_ms(run_fly, zs)
     plain_ms = event_ms(plain, zs, warmup=1)
     library_ms = event_ms(library, zs, warmup=1) if lib_ok else None
-    bound_ms, bound_by, flops, nbytes = bound(kernel, dtype, nw, n, s, bl)
+    bound_ms, bound_by, flops, nbytes, bound_fma_ms = bound(kernel, dtype, nw, n, s, bl)
     row = dict(
         name=f"{kernel}[{qf._SUFFIX[dtype]},W={nw},BL={bl},N={n},S={s}]",
         kernel=kernel, dtype=qf._SUFFIX[dtype], W=nw, BL=bl, N=n, S=s,
-        route="cuda", source=SOURCE, replaces=REPLACES[kernel],
+        route="cuda", source=SOURCE[dtype], replaces=REPLACES[kernel],
         max_abs_err=max_abs_err, ref_scale=scale,
         tolerance=f"|d| <= {rtol}*|ref| + {atol_rel}*max|ref| vs plain float64",
-        ok=ok, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        ok=ok, repeat_bitwise=same, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=bound_ms, bound_by=bound_by, peak=PEAK_NAME[dtype],
-        bound_tf32x3_ms=3.0 * flops / TF32_FLOPS * 1e3,
-        flops=flops, bytes_min=nbytes,
+        bound_fma_ms=bound_fma_ms, prepared=True, fly_ms=fly_ms,
+        layout=list(lay.shape), flops=flops, bytes_min=nbytes,
         tflops=flops / (kernel_ms * 1e-3) / 1e12,
     )
     if not ok:
@@ -508,14 +547,16 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = [l for log in _build.BUILD_LOG.values() for l in log["ptxas"].splitlines()
-             if "registers" in l or "spill" in l]
-    spills = [l for l in ptxas if "spill" in l and "0 bytes spill stores, 0 bytes spill loads" not in l]
-    lines.append(emit("build", seconds=build_s, sources=sorted(_build.BUILD_LOG),
-                      cached={k: v["cached"] for k, v in _build.BUILD_LOG.items()},
-                      max_registers=max([int(l.split("Used ")[1].split(" registers")[0])
-                                         for l in ptxas if "Used " in l] or [0]),
-                      kernels_with_spills=len(spills)))
+    per_source = {}
+    for name, log in sorted(_build.BUILD_LOG.items()):
+        kernels = ptxas_summary(log["ptxas"])
+        per_source[name] = dict(
+            cached=log["cached"], kernels=len(kernels),
+            max_registers=max([k["registers"] or 0 for k in kernels] or [0]),
+            kernels_with_spills=sum(1 for k in kernels
+                                    if (k["spill_stores"] or 0) + (k["spill_loads"] or 0)),
+            registers={k["kernel"]: k["registers"] for k in kernels})
+    lines.append(emit("build", seconds=build_s, sources=per_source))
     if args.out:
         with open(os.path.join(args.out, "ptxas.log"), "w") as f:
             f.write("\n".join(log["ptxas"] for log in _build.BUILD_LOG.values()))
@@ -566,7 +607,7 @@ def main() -> None:
             continue  # a shape of the checks only (ragged, float64)
         out_rows.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")} | {"launches": n})
+            "bound_ms", "bound_by", "peak", "library_ms", "prepared")} | {"launches": n})
     for kernel in ("qf_real", "cf_half"):
         if not any(r["name"].startswith(kernel) for r in out_rows):
             raise SystemExit(f"chip_smoke: kernel {kernel} was not launched by the main path")

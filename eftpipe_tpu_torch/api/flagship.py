@@ -39,6 +39,7 @@ from ..models.nonlinear import cf_loop_complex, complex_cf_matrices
 from ..likelihood.likelihood import EFTLikelihood, TracerSpec
 from ..likelihood.parambasis import WestCoastBasis
 from ..likelihood.covariance import GaussianCovariance, Multipole
+from ..ops.quadform import kernel_matrices
 from ..boltzmann.eh98 import EisensteinHuProvider
 from ..boltzmann.emulator import DEFAULT_PK_ARTIFACT, SolverEmulatorProvider
 
@@ -115,18 +116,22 @@ class FlagshipModel:
         ``ell_index`` CF loop terms of ``tracer`` through the complex
         quadratic form (``cf_contract`` on the unfolded matrices) against the
         folded real form (``quad_form_real``).  Returns (reference, folded),
-        both (W, 38, ns).  The complex matrices are built on first use."""
+        both (W, 38, ns).  The complex matrices, and on the card their
+        kernel layouts, are made on first use."""
         thetas = self._as_batch(thetas)
         pipe = self.like.tracers[tracer].pipeline
         key = (tracer, ell_index)
         cache = self.__dict__.setdefault("_complex_cf", {})
         if key not in cache:
             m = complex_cf_matrices(pipe.cfg, ell_index)
-            cache[key] = tuple(
+            parts = tuple(
                 torch.as_tensor(np.ascontiguousarray(part), dtype=self.dtype, device=self.device)
                 for part in (m.real, m.imag))
+            lays = tuple(kernel_matrices(p) for p in parts) if parts[0].is_cuda else None
+            cache[key] = parts, lays
         inputs, _ = self.cosmo_inputs(thetas)
-        return cf_loop_complex(pipe.nt, pipe.cfg, inputs[tracer].plin, cache[key], ell_index)
+        parts, lays = cache[key]
+        return cf_loop_complex(pipe.nt, pipe.cfg, inputs[tracer].plin, parts, ell_index, lays)
 
 
 def _fiducial_multipoles(pipe: TracerPipeline, provider, params, basis, binning):

@@ -1,19 +1,24 @@
 // Fused quadratic forms  out[w,b,s] = sum_n w[w,n,s] * sum_m M[b,n,m] w[w,m,s]
-// for NVIDIA Hopper (sm_90a), plain C interface, loaded with ctypes.
+// for NVIDIA Hopper (sm_90a), plain C interface, loaded with ctypes: the
+// FLOAT64 instances, on the FMA pipe.
 //
-// Replaces the two Pallas TPU kernels of eftpipe_tpu/ops/pallas_kernels.py:
-//   qf_real  <- _qf_real_kernel  (real, Hermitian-folded form, the main path)
+// Replaces, in float64, the two Pallas TPU kernels of
+// eftpipe_tpu/ops/pallas_kernels.py:
+//   qf_real  <- _qf_real_kernel  (real, Hermitian-folded form)
 //   cf_half  <- _cf_half_kernel  (one real part of a complex M against both
 //                                 parts of z; the A/B reference of the fold)
 // Both compute V = M w and reduce w .* V over n without V ever reaching
-// device memory.
+// device memory.  The float32 main path runs on the tensor cores
+// (quadform_tc.cu, 3xTF32); these float64 instances serve the on-card
+// float64 checks and are not on the float32 main path.  The FMA template
+// below is the design of the first slice of the port, kept as it was apart
+// from its float32 settings, which went with its float32 instances.
 //
 // What bounds it on this card: operations, and in practice the shared-memory
 // reads that feed them.  With N = 255, S = 80, BL = 114 the work is hundreds of
-// flops per byte moved once, far above the float32-FMA ridge of the card, so
-// the design is a register-tiled float32 (or float64) FMA product with the
-// reduction fused into its epilogue, and it does as little of the product as
-// the form allows:
+// flops per byte moved once, far above the float64-FMA ridge of the card, so
+// the design is a register-tiled float64 FMA product with the reduction fused
+// into its epilogue, and it does as little of the product as the form allows:
 //
 //  * Only the symmetric part of M enters w^T M w.  The wrapper hands over
 //    L = the lower triangle of M + M^T with the diagonal of M (w^T L w =
@@ -21,7 +26,7 @@
 //    and multiplies the tiles on and left of the diagonal only: (N/RB + 1)/2
 //    of N/RB row blocks' worth, 56 % at N = 255.  Rows of L are 16-byte
 //    aligned, so its tiles are fetched as 16-byte vectors with no column mask.
-//  * One M_b (255*255*4 = 260 KB) does not fit a block's 227 KB of shared
+//  * One M_b (255*255*8 = 520 KB) does not fit a block's 227 KB of shared
 //    memory, so a block keeps a COLUMN tile of w resident instead: all N rows
 //    of TJ = 64 columns of the flattened (walker, s) axis.  It arrives by
 //    asynchronous copies (cp.async), all of its elements in flight at once,
@@ -38,14 +43,14 @@
 //    (W, N, S) layout as it is (no walker regrouping or transposes).  Ragged
 //    edges of w (rows past N, W*S not a multiple of TJ) are zero-filled and
 //    never stored.
-//  * Blocks that run at the same time share a few w tiles and all of L
-//    (<= 30 MB in float32), which stays in the 50 MB L2.
+//  * Blocks that run at the same time share a few w tiles and the lower
+//    triangles of L (about 30 MB at BL = 114), which stay in the 50 MB L2.
 //
-// Each thread owns an RW x 8 micro-tile of V: RW = 8 rows for float32
-// qf_real, 4 where two accumulator sets or 64-bit values need the registers.
+// Each thread owns an RW x 8 micro-tile of V, RW = 4 rows: 64-bit values
+// (and, in cf_half, two accumulator sets) leave registers for no more.
 // The staged tile is stored transposed (ms[k][row]) so a thread reads its rows
-// as 16-byte vectors; a thread's columns are two (four in float64) 16-byte
-// chunks TX vectors apart, so that a quarter-warp reads 128 contiguous bytes
+// as 16-byte vectors; a thread's columns are four 16-byte chunks TX vectors
+// apart, so that a quarter-warp reads 128 contiguous bytes
 // without bank conflicts; the next tile is fetched into registers while the
 // current one is multiplied.
 
@@ -82,15 +87,6 @@ size_t smem_bytes(int np) {
 
 // 16-byte loads of COUNT contiguous, 16-byte aligned elements
 template <int COUNT>
-__device__ inline void load_vec(const float* p, float* d) {
-#pragma unroll
-  for (int i = 0; i < COUNT / 4; ++i) {
-    const float4 v = reinterpret_cast<const float4*>(p)[i];
-    d[4 * i] = v.x; d[4 * i + 1] = v.y; d[4 * i + 2] = v.z; d[4 * i + 3] = v.w;
-  }
-}
-
-template <int COUNT>
 __device__ inline void load_vec(const double* p, double* d) {
 #pragma unroll
   for (int i = 0; i < COUNT / 2; ++i) {
@@ -102,13 +98,10 @@ __device__ inline void load_vec(const double* p, double* d) {
 // asynchronous copy of one element from device to shared memory, or a zero
 template <typename T>
 __device__ inline void copy_async(T* dst, const T* src, bool valid) {
-  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "element size");
+  static_assert(sizeof(T) == 8, "element size");
   const unsigned d = unsigned(__cvta_generic_to_shared(dst));
   const int bytes = valid ? int(sizeof(T)) : 0;  // fewer than the size: zero-filled
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(bytes) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d), "l"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d), "l"(src), "r"(bytes) : "memory");
 }
 
 // the thread's CW columns of row `row` of a resident tile: CW / VEC chunks of
@@ -128,7 +121,7 @@ __device__ inline void load_cols(const T* tile, int row, int tx, T (&d)[CW]) {
 // aligned.  Nothing right of the diagonal blocks (RB x RB) is read; inside
 // them m must be zero right of the diagonal, as tril_fold of the wrapper makes it.
 template <typename T, int TJ, int NZ, int RW>
-__global__ void __launch_bounds__(THREADS, (sizeof(T) == 4 && NZ == 1) ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, 1)
 quadform_kernel(const T* __restrict__ z0, const T* __restrict__ z1,
                 const T* __restrict__ m, T* __restrict__ out0, T* __restrict__ out1,
                 int W, int N, int NP, int S, int BL, int bchunk) {
@@ -371,9 +364,7 @@ constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 template <typename T, int NZ>
 int launch(const void* z0, const void* z1, const void* m, void* out0, void* out1,
            int W, int N, int NP, int S, int BL, void* stream) {
-  // float32 qf_real, the main path, affords 8 rows of M a thread; two
-  // accumulator sets or 64-bit values leave registers for 4
-  constexpr int RW = (sizeof(T) == 4 && NZ == 1) ? 8 : 4;
+  constexpr int RW = 4;  // rows of M a thread
   if (W <= 0 || N <= 0 || S <= 0 || BL <= 0 || NP < N || NP % TK != 0 ||
       reinterpret_cast<size_t>(m) % 16 != 0)
     return int(cudaErrorInvalidValue);
@@ -400,19 +391,9 @@ extern "C" {
 
 int eft_quadform_pad() { return TK; }
 
-int eft_qf_real_f32(const void* w, const void* m, void* out,
-                    int W, int N, int NP, int S, int BL, void* stream) {
-  return launch<float, 1>(w, nullptr, m, out, nullptr, W, N, NP, S, BL, stream);
-}
-
 int eft_qf_real_f64(const void* w, const void* m, void* out,
                     int W, int N, int NP, int S, int BL, void* stream) {
   return launch<double, 1>(w, nullptr, m, out, nullptr, W, N, NP, S, BL, stream);
-}
-
-int eft_cf_half_f32(const void* m, const void* zr, const void* zi, void* out1, void* out2,
-                    int W, int N, int NP, int S, int BL, void* stream) {
-  return launch<float, 2>(zr, zi, m, out1, out2, W, N, NP, S, BL, stream);
 }
 
 int eft_cf_half_f64(const void* m, const void* zr, const void* zi, void* out1, void* out2,

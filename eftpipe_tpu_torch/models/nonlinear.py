@@ -35,7 +35,8 @@ from .. import to_device
 from ..ops import cplx
 from ..ops.fftlog import HostFFTLog, make_plan, fftlog_coef
 from ..ops.quadform import (
-    cf_contract, herm_fold, herm_w, qf_real_plain, quad_form_real, trim_nyquist,
+    cf_contract, herm_fold, herm_w, kernel_matrices, qf_real_plain, quad_form_real,
+    trim_nyquist,
 )
 from ..tables.loop_matrices import m13_matrices, m22_matrices, mpc
 from ..utils.io import atomic_save_npz
@@ -181,6 +182,19 @@ def build_nonlinear_tables(cfg: EFTConfig, device, dtype, cache_dir=None) -> dic
     return nonlinear_tables_to(nonlinear_tables_numpy(cfg, cache_dir), device, dtype)
 
 
+def kernel_layout(nt: dict, key: str):
+    """The layout the quadratic-form kernels read of ``nt[key + "_fold"]``
+    (``kernel_matrices``), made at its first use on the card and kept in the
+    tables as ``nt[key + "_kernel"]``: once per device and dtype.  None on the
+    CPU, where the plain version runs."""
+    m = nt[key + "_fold"]
+    if not m.is_cuda:
+        return None
+    if key + "_kernel" not in nt:
+        nt[key + "_kernel"] = kernel_matrices(m)
+    return nt[key + "_kernel"]
+
+
 def complex_cf_matrices(cfg: EFTConfig, ell_index: int = 0):
     """Host: the UNFOLDED complex CF quadratic-form matrices of one multipole,
     (n22+n13, n+1, n+1) complex128, stacked like one ℓ-slice of ``mcf_fold``
@@ -224,14 +238,19 @@ def nonlinear_pscf(nt: dict, cfg: EFTConfig, plin_kin, quadform: str = "kernel")
     """
     if quadform not in ("kernel", "plain"):
         raise ValueError(f"quadform must be 'kernel' or 'plain', got {quadform!r}")
-    qf = quad_form_real if quadform == "kernel" else qf_real_plain
+    if quadform == "kernel":
+        def qf(w, key):
+            return quad_form_real(w, nt[key + "_fold"], kernel_layout(nt, key))
+    else:
+        def qf(w, key):
+            return qf_real_plain(w, nt[key + "_fold"])
     coef_pk, coef_cf = _coefs(nt, cfg, plin_kin)
     nc = nt["nc"]
 
     # ---- P-side: T[w, n, k] = c_n · k^{ν_n + 3/2};
     # P22_bk = Re Σ_{nm} T_nk T_mk M22_bnm, Hermitian-folded to a real form
     w_pk = herm_w(coef_pk, nt["kpow22_half"], nc)
-    p22 = qf(w_pk, nt["m22_fold"])
+    p22 = qf(w_pk, "m22")
     p13_kernel = cplx.ceinsum_real("...n,nbk->...bk", coef_pk, nt["a13"])
 
     # ---- CF-side: Z[w, n, s] = c_n s^{-ν_n - 3}; C22/C13 are the same folded
@@ -242,7 +261,7 @@ def nonlinear_pscf(nt: dict, cfg: EFTConfig, plin_kin, quadform: str = "kernel")
     w_cf = herm_w(coef_cf, nt["spow_half"], nc)
     n22b, n13b = nt["n22"], nt["n13"]
     nl = nt["a11"][0].shape[1]
-    c_all = qf(w_cf, nt["mcf_fold"])  # (W, (28+10)·nl, ns)
+    c_all = qf(w_cf, "mcf")  # (W, (28+10)·nl, ns)
     ns_ = c_all.shape[-1]
     lead = c_all.shape[:-2]
     c22 = c_all[..., : n22b * nl, :].reshape(lead + (n22b, nl, ns_)).transpose(-3, -2)
@@ -251,14 +270,16 @@ def nonlinear_pscf(nt: dict, cfg: EFTConfig, plin_kin, quadform: str = "kernel")
                 cct_nnlo=cct_nnlo, c22=c22, c13=c13)
 
 
-def cf_loop_complex(nt: dict, cfg: EFTConfig, plin_kin, mcf_complex, ell_index: int = 0):
+def cf_loop_complex(nt: dict, cfg: EFTConfig, plin_kin, mcf_complex, ell_index: int = 0,
+                    prepared=None):
     """Complex A/B reference of the folded CF loop for one multipole.
 
     Contracts the UNFOLDED complex matrices ``mcf_complex`` = (mr, mi), each
     (38, n+1, n+1) (:func:`complex_cf_matrices` moved to the device), against
     the full complex z = c_n s^{-ν_n-3} through the public op ``cf_contract``
-    and returns (reference, folded): both (W, 38, ns), the second being the
-    ℓ = ``ell_index`` rows of the folded stack from ``quad_form_real``."""
+    (on their kernel layouts ``prepared`` when given) and returns (reference,
+    folded): both (W, 38, ns), the second being the ℓ = ``ell_index`` rows of
+    the folded stack from ``quad_form_real``."""
     _, coef_cf = _coefs(nt, cfg, plin_kin)
     nc = nt["nc"]
     pr, pi = nt["spow_half"]  # rows n ∈ [nc, 2nc)
@@ -270,7 +291,7 @@ def cf_loop_complex(nt: dict, cfg: EFTConfig, plin_kin, mcf_complex, ell_index: 
     zero = torch.zeros_like(zr_h[..., :1, :])
     zr = torch.cat([zero, zr_h[..., 1:, :].flip(-2), zr_h, zero], dim=-2)
     zi = torch.cat([zero, -zi_h[..., 1:, :].flip(-2), zi_h, zero], dim=-2)
-    ref = cf_contract(zr, zi, mcf_complex[0], mcf_complex[1])
+    ref = cf_contract(zr, zi, mcf_complex[0], mcf_complex[1], prepared)
     w_cf = herm_w(coef_cf, nt["spow_half"], nc)
     nl = nt["a11"][0].shape[1]
     rows = torch.arange(nt["n22"] + nt["n13"], device=plin_kin.device) * nl + ell_index

@@ -37,9 +37,16 @@ walker-grouped layouts have no counterpart.  The low-rank forms
 (``lowrank_factors``, ``quad_form_lowrank``) are not part of this module yet.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel of ``csrc/quadform.cu`` or raises.
-The CUDA wrappers hand the kernels ``tril_fold(m)``: only the symmetric part
-of M enters these forms, so the kernels multiply a lower triangle.
+version, a CUDA tensor launches a kernel or raises.  float32 runs on the
+tensor cores with a 3xTF32 split (``csrc/quadform_tc.cu``), float64 on the
+FMA template of ``csrc/quadform.cu`` (the on-card float64 checks).  Only the
+symmetric part of M enters these forms, so the kernels multiply a lower
+triangle: ``kernel_matrices(m)`` makes the layout a kernel reads (the fold,
+padded as its library asks; the float32 kernels split it into TF32 hi and lo
+parts on the chip).  Constant matrices get it once per model
+(``models/nonlinear.py``, ``api/flagship.py``) and hand it to the ops as
+``prepared``; a raw ``m`` is prepared on the fly.  The plain versions and the
+backward always use ``m``.
 Each wrapper counts its launches in ``LAUNCHES``.  The kernels have no
 backward kernel (neither had the TPU ones): the ``autograd.Function``s use
 the forward kernel and a backward in plain torch.
@@ -199,25 +206,35 @@ def cf_contract_plain(zr, zi, mr, mi):
 # ---------------------------------------------------------------------------
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# the source of each dtype's kernels: float32 on the tensor cores, float64 on
+# the FMA pipe
+_LIB = {torch.float32: "quadform_tc", torch.float64: "quadform"}
 _FUNCS: dict[str, object] = {}
 
 
-def _cfunc(name: str, nptr: int):
+def _lib(dtype):
+    """The loaded library of ``dtype``'s kernels (built at first use), with
+    the argument types of its C functions set."""
+    name = _LIB[dtype]
     if name not in _FUNCS:
-        lib = _build.load("quadform")
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.eft_quadform_pad.argtypes = []
-        lib.eft_quadform_pad.restype = ctypes.c_int
-        lib.eft_cuda_error_string.argtypes = [ctypes.c_int]
+        lib = _build.load(name)
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        suffix = _SUFFIX[dtype]
+        for fn, nptr in ((f"eft_qf_real_{suffix}", 3), (f"eft_cf_half_{suffix}", 5)):
+            getattr(lib, fn).argtypes = [ptr] * nptr + [i] * 5 + [ptr]
+            getattr(lib, fn).restype = i
+        for fn in ("eft_qf_tc_pad", "eft_quadform_pad"):
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = []
+                getattr(lib, fn).restype = i
+        lib.eft_cuda_error_string.argtypes = [i]
         lib.eft_cuda_error_string.restype = ctypes.c_char_p
-        _FUNCS[name] = fn
+        _FUNCS[name] = lib
     return _FUNCS[name]
 
 
-def _raise_cuda(code: int, what: str):
-    msg = _build.load("quadform").eft_cuda_error_string(code).decode()
+def _raise_cuda(dtype, code: int, what: str):
+    msg = _lib(dtype).eft_cuda_error_string(code).decode()
     raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
 
 
@@ -242,13 +259,12 @@ def _check_w(w, what):
 
 
 def tril_fold(m, multiple: int):
-    """The layout the kernels read.  Only the symmetric part of M enters
+    """The matrices the kernels multiply.  Only the symmetric part of M enters
     zᵀ M z, so m (BL, N, N) becomes L = the strict lower triangle of M + Mᵀ
     with the diagonal of M — zᵀ L z = zᵀ M z, and for two vectors
     xᵀ L y + yᵀ L x = xᵀ M y + yᵀ M x — zero-padded to (BL, NP, NP), NP the next
     multiple of ``multiple``: rows are then 16-byte aligned and the kernels
-    skip everything right of the diagonal.  A few elementwise passes over M
-    per call, next to the W·BL·N²·S operations of the product."""
+    skip everything right of the diagonal."""
     n = m.shape[-1]
     low = torch.tril(m + m.transpose(-1, -2), -1)
     low.diagonal(dim1=-2, dim2=-1).copy_(m.diagonal(dim1=-2, dim2=-1))
@@ -256,63 +272,81 @@ def tril_fold(m, multiple: int):
     return torch.nn.functional.pad(low, (0, extra, 0, extra))
 
 
-def _folded(m):
-    return tril_fold(m, _build.load("quadform").eft_quadform_pad())
+def kernel_matrices(m):
+    """The layout the kernels read of a CUDA tensor ``m`` (BL, N, N):
+    ``tril_fold`` padded to the multiple its dtype's library asks for (BL, NP,
+    NP).  Made once per model for constant matrices, and handed to the ops as
+    ``prepared``."""
+    if not m.is_cuda or m.dtype not in _LIB or m.dim() != 3:
+        raise ValueError("kernel_matrices: needs a (BL, N, N) float32/float64 CUDA tensor")
+    with torch.cuda.device(m.device):
+        lib = _lib(m.dtype)
+        pad = lib.eft_qf_tc_pad() if m.dtype == torch.float32 else lib.eft_quadform_pad()
+        return tril_fold(m, pad)
 
 
-def qf_real_cuda(w, m):
-    """Launch the fused kernel: w (W, N, S), m (BL, N, N) → (W, BL, S)."""
+def _prepared(m, prepared, n, like, what):
+    """``prepared`` checked against m (BL, N, N), or made from m now."""
+    if m.dim() != 3:
+        raise ValueError(f"{what}: m must be (BL, N, N)")
+    _check("m", m, (m.shape[0], n, n), like)
+    lay = kernel_matrices(m) if prepared is None else prepared
+    if (not isinstance(lay, torch.Tensor) or lay.device != like.device or lay.dtype != like.dtype
+            or lay.dim() != 3 or lay.shape[0] != m.shape[0] or lay.shape[1] != lay.shape[2]
+            or lay.shape[1] < n or not lay.is_contiguous()):
+        raise ValueError(f"{what}: prepared must be kernel_matrices(m), "
+                         f"got {getattr(lay, 'shape', type(lay))}")
+    return lay
+
+
+def qf_real_cuda(w, m, prepared=None):
+    """Launch the fused kernel: w (W, N, S), m (BL, N, N) → (W, BL, S);
+    ``prepared`` = ``kernel_matrices(m)``, made now when None."""
     _check_w(w, "qf_real_cuda")
     nw, n, s = w.shape
-    if m.dim() != 3:
-        raise ValueError("qf_real_cuda: m must be (BL, N, N)")
-    bl = m.shape[0]
-    _check("m", m, (bl, n, n), w)
-    out = torch.empty((nw, bl, s), dtype=w.dtype, device=w.device)
-    if out.numel() == 0:
-        return out
     with torch.cuda.device(w.device):
-        fn = _cfunc(f"eft_qf_real_{_SUFFIX[w.dtype]}", 3)
-        mp = _folded(m)
-        code = fn(w.data_ptr(), mp.data_ptr(), out.data_ptr(), nw, n, mp.shape[-1], s, bl,
+        lay = _prepared(m, prepared, n, w, "qf_real_cuda")
+        bl, np_ = lay.shape[0], lay.shape[-1]
+        out = torch.empty((nw, bl, s), dtype=w.dtype, device=w.device)
+        if out.numel() == 0:
+            return out
+        fn = getattr(_lib(w.dtype), f"eft_qf_real_{_SUFFIX[w.dtype]}")
+        code = fn(w.data_ptr(), lay.data_ptr(), out.data_ptr(), nw, n, np_, s, bl,
                   torch.cuda.current_stream().cuda_stream)
     if code != 0:
-        _raise_cuda(code, "qf_real_cuda")
+        _raise_cuda(w.dtype, code, "qf_real_cuda")
     _count_launch("qf_real", w.dtype, nw, n, s, bl)
     return out
 
 
-def cf_half_cuda(m, zr, zi):
-    """Launch the fused kernel for one real part of M: → (out1, out2)."""
+def cf_half_cuda(m, zr, zi, prepared=None):
+    """Launch the fused kernel for one real part of M: → (out1, out2);
+    ``prepared`` = ``kernel_matrices(m)``, made now when None."""
     _check_w(zr, "cf_half_cuda")
     nw, n, s = zr.shape
     _check("zi", zi, (nw, n, s), zr)
-    if m.dim() != 3:
-        raise ValueError("cf_half_cuda: m must be (BL, N, N)")
-    bl = m.shape[0]
-    _check("m", m, (bl, n, n), zr)
-    out1 = torch.empty((nw, bl, s), dtype=zr.dtype, device=zr.device)
-    out2 = torch.empty_like(out1)
-    if out1.numel() == 0:
-        return out1, out2
     with torch.cuda.device(zr.device):
-        fn = _cfunc(f"eft_cf_half_{_SUFFIX[zr.dtype]}", 5)
-        mp = _folded(m)
-        code = fn(mp.data_ptr(), zr.data_ptr(), zi.data_ptr(), out1.data_ptr(),
-                  out2.data_ptr(), nw, n, mp.shape[-1], s, bl,
-                  torch.cuda.current_stream().cuda_stream)
+        lay = _prepared(m, prepared, n, zr, "cf_half_cuda")
+        bl, np_ = lay.shape[0], lay.shape[-1]
+        out1 = torch.empty((nw, bl, s), dtype=zr.dtype, device=zr.device)
+        out2 = torch.empty_like(out1)
+        if out1.numel() == 0:
+            return out1, out2
+        fn = getattr(_lib(zr.dtype), f"eft_cf_half_{_SUFFIX[zr.dtype]}")
+        code = fn(lay.data_ptr(), zr.data_ptr(), zi.data_ptr(), out1.data_ptr(),
+                  out2.data_ptr(), nw, n, np_, s, bl, torch.cuda.current_stream().cuda_stream)
     if code != 0:
-        _raise_cuda(code, "cf_half_cuda")
+        _raise_cuda(zr.dtype, code, "cf_half_cuda")
     _count_launch("cf_half", zr.dtype, nw, n, s, bl)
     return out1, out2
 
 
-def _qf_real_forward(w, m):
-    return qf_real_cuda(w, m) if w.is_cuda else qf_real_plain(w, m)
+def _qf_real_forward(w, m, prepared=None):
+    return qf_real_cuda(w, m, prepared) if w.is_cuda else qf_real_plain(w, m)
 
 
-def _cf_half_forward(m, zr, zi):
-    return cf_half_cuda(m, zr, zi) if zr.is_cuda else cf_half_plain(m, zr, zi)
+def _cf_half_forward(m, zr, zi, prepared=None):
+    return cf_half_cuda(m, zr, zi, prepared) if zr.is_cuda else cf_half_plain(m, zr, zi)
 
 
 # ---------------------------------------------------------------------------
@@ -324,9 +358,9 @@ class _QuadFormReal(torch.autograd.Function):
     plain torch: ∂/∂w = g ⊙ ((M̃ + M̃ᵀ) w), chunked like the plain forward."""
 
     @staticmethod
-    def forward(ctx, w, m):
+    def forward(ctx, w, m, prepared):
         ctx.save_for_backward(w, m)
-        return _qf_real_forward(w, m)
+        return _qf_real_forward(w, m, prepared)
 
     @staticmethod
     def backward(ctx, g):
@@ -340,7 +374,7 @@ class _QuadFormReal(torch.autograd.Function):
         for a, b in _walker_chunks(w.shape[0], per):
             v = torch.einsum("wms,bnm->wbns", w[a:b], msym)
             outs.append(torch.einsum("wbs,wbns->wns", g[a:b], v))
-        return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)), None
+        return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)), None, None
 
 
 class _CfContract(torch.autograd.Function):
@@ -348,10 +382,11 @@ class _CfContract(torch.autograd.Function):
     (CPU).  Backward: autograd of the plain version."""
 
     @staticmethod
-    def forward(ctx, zr, zi, mr, mi):
+    def forward(ctx, zr, zi, mr, mi, prepared):
         ctx.save_for_backward(zr, zi, mr, mi)
-        out1, _ = _cf_half_forward(mr, zr, zi)
-        _, out2 = _cf_half_forward(mi, zr, zi)
+        lr, li = (None, None) if prepared is None else prepared
+        out1, _ = _cf_half_forward(mr, zr, zi, lr)
+        _, out2 = _cf_half_forward(mi, zr, zi, li)
         return out1 - out2
 
     @staticmethod
@@ -365,27 +400,31 @@ class _CfContract(torch.autograd.Function):
             b = zi.detach().requires_grad_(True)
             out = cf_contract_plain(a, b, mr, mi)
             ga, gb = torch.autograd.grad(out, (a, b), g)
-        return ga, gb, None, None
+        return ga, gb, None, None, None
 
 
 def _flat3(x):
     return x.reshape((-1,) + tuple(x.shape[-2:])).contiguous()
 
 
-def quad_form_real(w, m):
+def quad_form_real(w, m, prepared=None):
     """wᵀ M̃ w over the folded spectral index: w (..., N, S), m (BL, N, N) →
-    (..., BL, S).  On a CUDA tensor this launches the fused kernel."""
+    (..., BL, S).  On a CUDA tensor this launches the fused kernel, on
+    ``prepared`` = ``kernel_matrices(m)`` when given (made now otherwise)."""
     lead = w.shape[:-2]
-    out = _QuadFormReal.apply(_flat3(w), m.contiguous())
+    out = _QuadFormReal.apply(_flat3(w), m.contiguous(), prepared)
     return out.reshape(tuple(lead) + tuple(out.shape[-2:]))
 
 
-def cf_contract(zr, zi, mr, mi):
+def cf_contract(zr, zi, mr, mi, prepared=None):
     """Re(zᵀ M z), the complex A/B reference of the folded form: zr/zi
     (..., N, S), mr/mi (BL, N, N) → (..., BL, S).  On CUDA tensors this
-    launches the half kernel twice (once per real part of M)."""
+    launches the half kernel twice (once per real part of M), on
+    ``prepared`` = (``kernel_matrices(mr)``, ``kernel_matrices(mi)``) when
+    given (made now otherwise)."""
     lead = zr.shape[:-2]
-    out = _CfContract.apply(_flat3(zr), _flat3(zi), mr.contiguous(), mi.contiguous())
+    out = _CfContract.apply(_flat3(zr), _flat3(zi), mr.contiguous(), mi.contiguous(),
+                            prepared)
     return out.reshape(tuple(lead) + tuple(out.shape[-2:]))
 
 

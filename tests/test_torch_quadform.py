@@ -188,19 +188,135 @@ def test_tril_fold_keeps_the_quadratic_forms(n, multiple, n_padded):
         close(got, want)
 
 
+@pytest.mark.parametrize("n", [33, 64, 255, 257])
+def test_kernel_layout_is_the_fold_padded(n):
+    """The layout the float32 CUDA kernels read, as ``kernel_matrices`` makes
+    it once per model: ``tril_fold`` at the float32 kernel's padding, (BL,
+    NP, NP) with NP the next multiple of 64; the lower triangle of M + Mᵀ
+    with M's diagonal, nothing right of the diagonal and nothing in the
+    padding."""
+    rng = np.random.default_rng(n)
+    m = t(rng.standard_normal((3, n, n)) * 10.0 ** rng.uniform(-3, 3, (3, n, n)), torch.float32)
+    lay = tq.tril_fold(m, 64)
+    npad = -(-n // 64) * 64
+    assert lay.shape == (3, npad, npad) and lay.is_contiguous()
+    assert torch.equal(lay, torch.tril(lay))
+    assert not lay[:, n:, :].any() and not lay[:, :, n:].any()
+    sym = m + m.transpose(-1, -2)
+    assert torch.equal(lay[:, :n, :n].tril(-1), sym.tril(-1))
+    assert torch.equal(lay[:, :n, :n].diagonal(dim1=-2, dim2=-1), m.diagonal(dim1=-2, dim2=-1))
+
+
+@pytest.mark.parametrize("n", [33, 255])
+def test_tf32_split_of_the_layout(n):
+    """The split the float32 kernels make on the chip: L_hi = the float32
+    fold as the tensor core reads it (the low 13 bits dropped), L_lo = the
+    rest rounded to TF32.  Both are exactly TF32 (low 13 mantissa bits zero)
+    and hi + lo is within 2⁻²¹ of the fold, relative."""
+    rng = np.random.default_rng(n + 1)
+    m = t(rng.standard_normal((3, n, n)) * 10.0 ** rng.uniform(-3, 3, (3, n, n)), torch.float32)
+    fold = tq.tril_fold(m, 64)
+    hi = _tf32_bits(fold, False)
+    lo = _tf32_bits(fold - hi, True)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    err = ((hi.double() + lo.double()) - fold.double()).abs()
+    assert bool((err <= 2.0 ** -21 * fold.double().abs()).all())
+    assert bool(((fold - hi).abs() <= 2.0 ** -10 * fold.abs()).all())
+
+
+def _tf32_bits(x, rounded: bool):
+    """TF32 by bit masking: the low 13 bits of the float32 pattern cleared,
+    after adding half their range when ``rounded`` (nearest, ties away), as
+    the tensor core reads an operand when not (truncation)."""
+    bits = x.contiguous().view(torch.int32)
+    if rounded:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _qf_tf32(w, m, passes: int):
+    """The float32 kernel's arithmetic in plain torch on the fold L of m:
+    w split into hi = TF32(w) and lo = w − hi (which the tensor core reads
+    truncated), L into hi = L as the tensor core reads a float32 operand
+    (truncated) and lo = TF32(L − hi); V = L w as lo·hi + hi·lo + hi·hi
+    (passes = 3) or hi·hi alone (passes = 1), every product and sum in
+    float32; then Σ_n w ⊙ V in float32."""
+    low = tq.tril_fold(m, 64)
+    wp = torch.nn.functional.pad(w, (0, 0, 0, low.shape[-1] - w.shape[1]))
+    wh = _tf32_bits(wp, True)
+    wl = _tf32_bits(wp - wh, False)
+    lh = _tf32_bits(low, False)
+    ll = _tf32_bits(low - lh, True)
+    prod = lambda a, b: torch.einsum("bnm,wms->wbns", a, b)
+    v = prod(lh, wh) if passes == 1 else prod(ll, wh) + prod(lh, wl) + prod(lh, wh)
+    return torch.einsum("wns,wbns->wbs", wp, v)
+
+
+def test_3xtf32_arithmetic_keeps_float32_grade_accuracy():
+    """At the flagship's N = 255 (W=2, S=80, BL=8): the 3xTF32 arithmetic of
+    the float32 kernels, emulated in float32, stays within ``chip_smoke.py``'s
+    float32 kernel-check tolerance (rtol 2e-4 + 2e-3·max|ref|) of the float64
+    plain version, and 30 times closer to it than a lone TF32 pass, which the
+    kernels do not use."""
+    rng = np.random.default_rng(11)
+    w = t(rng.standard_normal((2, 255, 80)), torch.float32)
+    m = t(rng.standard_normal((8, 255, 255)), torch.float32)
+    ref = tq.qf_real_plain(w.double(), m.double())
+    scale = float(ref.abs().max())
+    err3 = (_qf_tf32(w, m, 3).double() - ref).abs()
+    err1 = (_qf_tf32(w, m, 1).double() - ref).abs()
+    assert bool((err3 <= 2e-4 * ref.abs() + 2e-3 * scale).all())
+    assert float(err3.max()) * 30 < float(err1.max()), (float(err3.max()), float(err1.max()))
+
+
+def test_gradcheck_quad_form_real_with_prepared_layout():
+    """``prepared`` is a forward-only argument: no gradient, the same value
+    and gradient as without it (the CPU path ignores it)."""
+    rng = np.random.default_rng(6)
+    w = t(rng.standard_normal((3, 9, 5))).requires_grad_(True)
+    m = t(rng.standard_normal((4, 9, 9)))
+    lay = tq.tril_fold(m, 32)
+    assert torch.autograd.gradcheck(lambda x: tq.quad_form_real(x, m, lay), (w,))
+    assert torch.equal(tq.quad_form_real(w, m, lay), tq.quad_form_real(w, m))
+
+
+def test_cf_contract_with_prepared_layouts():
+    """``prepared`` of ``cf_contract`` (the kernel layouts of mr and mi) is a
+    forward-only argument: on the CPU the same value and gradient as
+    without it."""
+    rng = np.random.default_rng(8)
+    zr, zi = (t(rng.standard_normal((2, 9, 4))).requires_grad_(True) for _ in range(2))
+    mr, mi = (t(rng.standard_normal((3, 9, 9))) for _ in range(2))
+    lays = (tq.tril_fold(mr, 8), tq.tril_fold(mi, 8))
+    assert torch.autograd.gradcheck(lambda a, b: tq.cf_contract(a, b, mr, mi, lays), (zr, zi))
+    assert torch.equal(tq.cf_contract(zr, zi, mr, mi, lays), tq.cf_contract(zr, zi, mr, mi))
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(12, 33, 10, 7), (3, 255, 80, 11), (3, 257, 80, 11)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernels_match_plain_on_card(cuda, data, dtype):
-    """float32: rtol 2e-4 + 2e-3·max|ref| against the float64 plain version;
-    float64: 1e-10 (an indexing fault fails this, rounding does not)."""
-    zr, zi, mr, _ = (torch.as_tensor(x, dtype=dtype, device=cuda) for x in data)
+def test_kernels_match_plain_on_card(cuda, dtype, shape):
+    """float32 (3xTF32 tensor cores): rtol 2e-4 + 2e-3·max|ref| against the
+    float64 plain version; float64: 1e-10 (an indexing fault fails this,
+    rounding does not).  The ragged shape of tests/test_quadform.py and the
+    flagship's N = 255 / 257; the layout made once (``kernel_matrices``) and
+    the one made on the fly give bitwise the same result."""
+    nw, n, s, bl = shape
+    rng = np.random.default_rng(n)
+    zr, zi, mr = (torch.as_tensor(rng.standard_normal(sh), dtype=dtype, device=cuda)
+                  for sh in [(nw, n, s), (nw, n, s), (bl, n, n)])
     tol = dict(rtol=2e-4, atol=2e-3) if dtype == torch.float32 else dict(rtol=1e-10, atol=1e-10)
     tq.reset_launch_counts()
     ref = tq.qf_real_plain(zr.double(), mr.double())
     got = tq.quad_form_real(zr, mr).double()
     assert torch.allclose(got, ref, rtol=tol["rtol"], atol=tol["atol"] * float(ref.abs().max()))
+    lay = tq.kernel_matrices(mr)
+    assert torch.equal(tq.quad_form_real(zr, mr, lay).double(), got)
     r1, r2 = tq.cf_half_plain(mr.double(), zr.double(), zi.double())
     g1, g2 = tq.cf_half_cuda(mr, zr, zi)
     for g, r in ((g1, r1), (g2, r2)):
         assert torch.allclose(g.double(), r, rtol=tol["rtol"], atol=tol["atol"] * float(r.abs().max()))
-    assert tq.LAUNCHES == {"qf_real": 1, "cf_half": 1}
+    p1, p2 = tq.cf_half_cuda(mr, zr, zi, lay)
+    assert torch.equal(p1, g1) and torch.equal(p2, g2)
+    assert tq.LAUNCHES == {"qf_real": 2, "cf_half": 2}
