@@ -38,8 +38,18 @@ Phases, each printing one JSON line:
    constraint and fiber collisions, and one with a window matrix, each in
    float32 at W=64 against the float64 plain path (same µ quadrature); the
    bias-contracted multipoles are held to the 1e-4 budget.
-7. ``kernels`` line, the card's ``nvidia-smi`` line, and the final
-   ``{"ok": true, "device": {...}}`` line.
+7. ``sampling`` — the sampling path on the default flagship (float32,
+   kernels): ``gradient`` (autograd of ``logp`` on the 64 seeded points
+   against the float64 plain path, ``grad_max_rel_err`` < 1e-2; ``logp`` and
+   ``logp`` + backward timed at W=256 and 1024; the backward's peak memory;
+   the ``qf_real`` backward against its forward kernel, by CUDA events and
+   under ``torch.profiler``), ``stretch`` (``MCMCDriver`` with 1024 walkers,
+   10 steps written to a checkpoint, then resumed to 15) and ``hmc``
+   (``MCMCDriver(sampler_kind="hmc")``, 64 chains, 10 warmup and 10
+   sampling steps).  Each sampler path counts its ``logp`` calls and its
+   kernel launches, which must be 4 per call.
+8. ``kernels`` line (launches by path), the card's ``nvidia-smi`` line, and
+   the final ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises: the exit code is then non-zero and no final line is
 printed.  Imports nothing but the port (``eftpipe_tpu_torch``), torch, numpy.
@@ -52,6 +62,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -68,6 +79,7 @@ from eftpipe_tpu_torch.models.ap import lcdm_da, lcdm_hubble
 from eftpipe_tpu_torch.models.config import EFTConfig
 from eftpipe_tpu_torch.models.pipeline import CosmoInputs, TracerPipeline
 from eftpipe_tpu_torch.ops import _build, quadform as qf
+from eftpipe_tpu_torch.parallel.mcmc import MCMCDriver
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORKDIR = os.path.join(ROOT, "chip_smoke_workdir")
@@ -86,6 +98,8 @@ LOGP_ABS_BUDGET = 0.02
 MULTIPOLE_REL_BUDGET = 1e-4  # tests/test_accuracy_budget.py
 CHUNK_TRIALS = (256, 512)  # walker chunks tried, beside the whole batch
 LITE_BATCH = 256
+GRAD_REL_BUDGET = 1e-2
+QF_PER_LOGP = 4  # qf_real launches of one logp call: two per tracer
 
 REPLACES = {
     "qf_real": "eftpipe_tpu/ops/pallas_kernels.py:313",
@@ -247,22 +261,29 @@ def accuracy_batch(theta0: np.ndarray) -> np.ndarray:
     return np.concatenate(parts, axis=0)
 
 
-def host_ms(fn, n: int = 3) -> float:
-    fn()
+def host_ms_over(fn, inputs) -> float:
+    """Mean host milliseconds of ``fn(x)`` over the distinct ``inputs[1:]``,
+    after a call on ``inputs[0]``; the timed calls end in a synchronisation."""
+    fn(inputs[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
+    for x in inputs[1:]:
+        fn(x)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n * 1e3
+    return (time.perf_counter() - t0) / (len(inputs) - 1) * 1e3
 
 
-def profile_batch(fn, wall_seconds: float, top: int = 8) -> dict:
-    """Device time of one call of ``fn`` by kernel name (``torch.profiler``,
-    CUPTI) and the device's idle share against ``wall_seconds``, the host time
-    of the same call measured WITHOUT the profiler."""
+def host_ms(fn, n: int = 3) -> float:
+    return host_ms_over(lambda _: fn(), [None] * (n + 1))
+
+
+def kernel_rows(fn) -> list:
+    """(kernel name, device µs, calls) of one call of ``fn`` under
+    ``torch.profiler`` (CUPTI), largest first; empty where the machine
+    traces no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -275,9 +296,16 @@ def profile_batch(fn, wall_seconds: float, top: int = 8) -> dict:
             us = ev.self_cuda_time_total
         if us > 0:
             rows.append((ev.key, float(us), int(ev.count)))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_batch(fn, wall_seconds: float, top: int = 8) -> dict:
+    """Device time of one call of ``fn`` by kernel name and the device's
+    idle share against ``wall_seconds``, the host time of the same call
+    measured WITHOUT the profiler."""
+    rows = kernel_rows(fn)
     if not rows:  # no device tracing on this machine: a measurement, not a check
         return dict(device_busy_ms=None, device_idle_share=None, note="not measured")
-    rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     return dict(device_busy_ms=busy_ms, wall_ms=wall_seconds * 1e3,
                 device_idle_share=1.0 - busy_ms / (wall_seconds * 1e3),
@@ -407,7 +435,190 @@ def flagship_path(phase: str, model_name: str, build_kw: dict, nb: int, n_timed:
     if launches["qf_real"] != expected_qf or launches["cf_half"] != expected_cf:
         raise SystemExit(f"chip_smoke: {phase}: launch counts {launches}, expected "
                          f"qf_real={expected_qf}, cf_half={expected_cf}")
-    return by_shape
+    return by_shape, model, ref_model
+
+
+def value_and_grad(model, thetas):
+    """(logp, ∇logp) of a walker batch: one forward, one backward."""
+    x = thetas.detach().requires_grad_(True)
+    lp = model.logp(x)
+    (g,) = torch.autograd.grad(lp.sum(), x)
+    return lp.detach(), g
+
+
+def device_ms(fn) -> tuple:
+    """Device milliseconds of one call of ``fn`` under ``torch.profiler``,
+    in total and the top kernels by name (None where not measured)."""
+    rows = kernel_rows(fn)
+    if not rows:
+        return None, []
+    return (sum(r[1] for r in rows) / 1e3,
+            [dict(name=k[:80], ms=us / 1e3, calls=n) for k, us, n in rows[:4]])
+
+
+def qf_backward_rows(gen: torch.Generator, shapes) -> list:
+    """The ``qf_real`` backward (plain torch, ``qf_real_backward_plain``)
+    at the path's shapes: its time by CUDA events over distinct inputs, the
+    forward kernel's in the same call, their device times under the
+    profiler, the one-call einsum of the same function, and the bound of its
+    operations (the full N² of (M + Mᵀ) w, plus the contraction with g) at
+    the 67 TFLOP/s float32 FMA rate against its bytes."""
+    dev, f32 = torch.device("cuda"), torch.float32
+    rows = []
+    for nw, n, s, bl in shapes:
+        m = torch.randn(bl, n, n, generator=gen, device=dev, dtype=f32)
+        lay = qf.kernel_matrices(m)
+        ins = [(torch.randn(nw, n, s, generator=gen, device=dev, dtype=f32),
+                torch.randn(nw, bl, s, generator=gen, device=dev, dtype=f32)) for _ in range(3)]
+        bwd = lambda x: qf.qf_real_backward_plain(x[1], x[0], m)
+        fwd = lambda x: qf.qf_real_cuda(x[0], m, lay)
+        msym = m + m.transpose(-1, -2)
+        library = lambda x: torch.einsum("wbs,bnm,wms->wns", x[1], msym, x[0])
+        ref = qf.qf_real_backward_plain(ins[0][1].double(), ins[0][0].double(), m.double())
+        err = float((bwd(ins[0]).double() - ref).abs().max())
+        bwd_ms, fwd_ms = event_ms(bwd, ins, warmup=1), event_ms(fwd, ins)
+        library_ms = event_ms(library, ins, warmup=1)
+        bwd_dev, bwd_top = device_ms(lambda: bwd(ins[1]))
+        fwd_dev, _ = device_ms(lambda: fwd(ins[1]))
+        flops = 2.0 * nw * bl * n * n * s + 2.0 * nw * bl * n * s
+        nbytes = 4 * (bl * n * n + 2 * nw * n * s + nw * bl * s)
+        t_ops, t_bytes = flops / FMA_FLOPS[f32] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(
+            name=f"qf_real_backward[f32,W={nw},BL={bl},N={n},S={s}]", route="plain torch",
+            W=nw, BL=bl, N=n, S=s, ms=bwd_ms, forward_kernel_ms=fwd_ms, library_ms=library_ms,
+            device_ms=bwd_dev, forward_device_ms=fwd_dev, top=bwd_top,
+            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+            max_abs_err_vs_float64=err, ref_scale=float(ref.abs().max())))
+    return rows
+
+
+class CountedLogp:
+    """A model's ``logp`` that counts its calls."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, 0
+
+    def __call__(self, thetas, chunk=None):
+        self.calls += 1
+        return self.model.logp(thetas, chunk=chunk)
+
+
+def sampling_phase(model, ref_model, lines: list) -> dict:
+    """The sampling path on the default flagship: gradient accuracy and
+    cost, a stretch-move run with checkpoint and resume, an HMC run.
+    Returns the launches by shape of each sampler path."""
+    f32, f64, dev = torch.float32, torch.float64, torch.device("cuda")
+    thetas = accuracy_batch(model.theta0)
+    _, g32 = value_and_grad(model, torch.as_tensor(thetas, dtype=f32, device=dev))
+    _, g64 = value_and_grad(ref_model, torch.as_tensor(thetas, dtype=f64, device=dev))
+    rel = ((g32.double() - g64).norm(dim=-1) / g64.norm(dim=-1)).cpu().numpy()
+    rng = np.random.default_rng(11)
+    timing = {}
+    for nb in (256, 1024):
+        batches = [torch.as_tensor(
+            model.theta0[None, :] * (1.0 + 1e-3 * rng.standard_normal((nb, model.theta0.size))),
+            dtype=f32, device=dev) for _ in range(4)]
+        with torch.no_grad():
+            logp_ms = host_ms_over(model.logp, batches)
+        vg_ms = host_ms_over(lambda x: value_and_grad(model, x), batches)
+        timing[str(nb)] = dict(logp_ms=logp_ms, value_and_grad_ms=vg_ms,
+                               backward_share=1.0 - logp_ms / vg_ms)
+    torch.cuda.reset_peak_memory_stats()
+    value_and_grad(model, batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    syncs = sync_sites(lambda: value_and_grad(model, batches[0]))
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    backward = qf_backward_rows(gen, [(64, 255, 80, 114), (256, 255, 80, 114),
+                                      (1024, 255, 80, 114), (1024, 255, 80, 76),
+                                      (1024, 255, 50, 28)])
+    worst = float(rel.max())
+    lines.append(emit("sampling", part="gradient", n_points=int(rel.size),
+                      reference="float64 plain path on the card", grad_max_rel_err=worst,
+                      budget=GRAD_REL_BUDGET, grad_finite=bool(torch.isfinite(g32).all()),
+                      timing_by_batch=timing, peak_memory_bytes=peak,
+                      host_syncs_per_value_and_grad=len(syncs),
+                      sync_sites=sorted(set(syncs)), qf_real_backward=backward))
+    if not bool(torch.isfinite(g32).all()) or not worst < GRAD_REL_BUDGET:
+        raise SystemExit(f"chip_smoke: sampling: float32 gradient off by {worst}")
+
+    by_path = {}
+    x0 = torch.as_tensor(model.theta0, dtype=f32, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- stretch: 10 steps to a checkpoint, then resumed to 15 ---------
+        counted = CountedLogp(model)
+        kw = dict(logp=counted, ndim=9, nwalkers=1024, block=5, rhat_tol=-1.0,
+                  out=os.path.join(tmp, "stretch"), device=dev)
+        qf.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = MCMCDriver(**kw).run(seed=0, x0=x0, max_steps=10)
+        resumed_driver = MCMCDriver(**kw)
+        res = resumed_driver.run(seed=0, max_steps=15)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(qf.LAUNCHES)
+        by_path["stretch"] = dict(qf.LAUNCHES_BY_SHAPE)
+        calls = counted.calls
+        expected_calls = 3 * (1 + 2 * 5)  # three blocks of five steps
+        # uncounted: one more block of the sampler alone, timed and then
+        # under the sync debug mode
+        walkers = torch.as_tensor(res.chain[-1], device=dev)
+        block = lambda: resumed_driver.sampler.run(
+            torch.Generator(device=dev).manual_seed(1), walkers, 5)
+        block_s = host_ms(block, n=1) / 1e3
+        syncs = sync_sites(block)
+        extended = (res.chain.shape == (15, 1024, 9)
+                    and bool(np.array_equal(res.chain[:10], first.chain)))
+        finite = bool(np.isfinite(res.logps).all())
+        lines.append(emit(
+            "sampling", part="stretch", nwalkers=1024, block=5, steps=15,
+            resumed_from=10, chain_shape=list(res.chain.shape), extended=extended,
+            all_finite=finite, seconds=seconds, steps_per_s=15 / seconds,
+            evals_per_s=1024 * 15 / seconds, accept_rate=res.accept_rate,
+            sampler_block_seconds=block_s, sampler_evals_per_s=1024 * 5 / block_s,
+            logp_calls=calls, expected_logp_calls=expected_calls,
+            launches=launches, expected_qf_real=QF_PER_LOGP * calls,
+            host_syncs_per_step=len(syncs) / 5, sync_sites=sorted(set(syncs))))
+        if not extended or not finite:
+            raise SystemExit("chip_smoke: stretch: the resumed chain did not extend the first")
+        if calls != expected_calls or launches["qf_real"] != QF_PER_LOGP * calls:
+            raise SystemExit(f"chip_smoke: stretch: {calls} logp calls and launches "
+                             f"{launches}, expected {expected_calls} and 4 per call")
+
+        # ---- hmc: 10 warmup transitions, then two blocks of five ----------
+        counted = CountedLogp(model)
+        driver = MCMCDriver(logp=counted, ndim=9, sampler_kind="hmc", nwalkers=64,
+                            n_leapfrog=4, warmup_steps=10, block=5, rhat_tol=-1.0,
+                            inv_mass0=(1e-2 * model.theta0) ** 2,
+                            out=os.path.join(tmp, "hmc"), device=dev)
+        qf.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = driver.run(seed=0, x0=x0, max_steps=10)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(qf.LAUNCHES)
+        by_path["hmc"] = dict(qf.LAUNCHES_BY_SHAPE)
+        calls = counted.calls
+        # uncounted: two more transitions under the sync debug mode
+        walkers = torch.as_tensor(res.chain[-1], device=dev)
+        syncs = sync_sites(lambda: driver.sampler.run(
+            torch.Generator(device=dev).manual_seed(1), walkers, 2))
+    eps = driver.sampler.eps.cpu().numpy()
+    inv_mass = driver.sampler.inv_mass.cpu().numpy()
+    ok = (bool(np.isfinite(res.logps).all()) and res.accept_rate > 0.0
+          and bool(np.isfinite(eps).all()) and bool(np.isfinite(inv_mass).all()))
+    lines.append(emit(
+        "sampling", part="hmc", nchains=64, n_leapfrog=4, warmup_steps=10, steps=10,
+        chain_shape=list(res.chain.shape), all_finite=bool(np.isfinite(res.logps).all()),
+        accept_rate=res.accept_rate, eps=float(eps), inv_mass=inv_mass.tolist(),
+        seconds=seconds, grads_per_s=64 * calls / seconds,
+        logp_calls=calls, launches=launches, expected_qf_real=QF_PER_LOGP * calls,
+        host_syncs_per_step=len(syncs) / 2, sync_sites=sorted(set(syncs))))
+    if not ok:
+        raise SystemExit("chip_smoke: hmc: non-finite chain or metric, or nothing accepted")
+    if launches["qf_real"] != QF_PER_LOGP * calls:
+        raise SystemExit(f"chip_smoke: hmc: launches {launches} for {calls} logp calls")
+    return by_path
 
 
 def stage_files(workdir: str) -> dict:
@@ -587,27 +798,30 @@ def main() -> None:
         return
 
     # ---- the two flagship paths, then the survey-geometry stages ---------
-    by_shape = flagship_path(
+    by_path = {}
+    by_path["main_path"], model, ref_model = flagship_path(
         "main_path", "flagship LRG(nl=3)+ELG(nl=2), nfft_loop=256, window, solver_emulator",
         dict(), nb=args.batch, n_timed=3, chunk_trials=CHUNK_TRIALS, full=True, lines=lines)
-    lite = flagship_path(
+    by_path.update(sampling_phase(model, ref_model, lines))
+    del model, ref_model
+    by_path["main_path_lite"], _, _ = flagship_path(
         "main_path_lite", "flagship LRG(nl=3)+ELG(nl=2), nfft_loop=256, eh98, no window",
         dict(with_window=False, cosmology="eh98"), nb=LITE_BATCH, n_timed=1,
         chunk_trials=(), full=False, lines=lines)
-    for key, n in lite.items():
-        by_shape[key] = by_shape.get(key, 0) + n
     stages_check(64, lines)
 
-    # ---- the kernels line: one row per kernel and main-path shape ---------
+    # ---- the kernels line: one row per kernel and shape the paths launched,
+    # with the launches of each path and their sum -------------------------
     out_rows = []
     for row in rows:
         key = (row["kernel"], row["dtype"], row["W"], row["N"], row["S"], row["BL"])
-        n = by_shape.get(key, 0)
-        if n == 0:
+        per_path = {path: counts[key] for path, counts in by_path.items() if key in counts}
+        if not per_path:
             continue  # a shape of the checks only (ragged, float64)
         out_rows.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "peak", "library_ms", "prepared")} | {"launches": n})
+            "bound_ms", "bound_by", "peak", "library_ms", "prepared")}
+            | {"launches": sum(per_path.values()), "launches_by_path": per_path})
     for kernel in ("qf_real", "cf_half"):
         if not any(r["name"].startswith(kernel) for r in out_rows):
             raise SystemExit(f"chip_smoke: kernel {kernel} was not launched by the main path")

@@ -1,10 +1,10 @@
 """eftpipe_tpu_torch — the PyTorch/CUDA port of ``eftpipe_tpu``.
 
 Same sub-package layout as the JAX package (``ops/ tables/ models/
-likelihood/ boltzmann/ api/``) plus ``csrc/`` for the hand-written CUDA
-kernels.  The port imports ``torch``, ``numpy`` and ``scipy`` only; it never
-imports ``jax`` nor anything of ``eftpipe_tpu`` (its pure-NumPy Phase-A
-modules are copied here).
+likelihood/ boltzmann/ api/ parallel/``) plus ``csrc/`` for the hand-written
+CUDA kernels.  The port imports ``torch``, ``numpy`` and ``scipy`` only; it
+never imports ``jax`` nor anything of ``eftpipe_tpu`` (its pure-NumPy
+Phase-A modules are copied here).
 
 Conventions of the port:
 
@@ -27,6 +27,20 @@ import numpy as np
 import torch
 
 __version__ = "0.1.0"
+
+_LAZY = {
+    "EnsembleSampler": "eftpipe_tpu_torch.parallel.sampler",
+    "MCMCDriver": "eftpipe_tpu_torch.parallel.mcmc",
+    "HMC": "eftpipe_tpu_torch.parallel.hmc",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 # IEEE float32 products everywhere; the accuracy budget of the float32 path
 # (|dlogp| < 0.02 against float64) is stated for this setting.

@@ -59,14 +59,17 @@ def poly_exponents(nin: int, degree: int) -> np.ndarray:
 
 def _poly_design(xn, degree: int, cache: dict):
     """Monomial design matrix (..., nterms) of the (..., nin) normalised
-    inputs: the powers x_j^0..x_j^degree by one cumulative product, then one
-    gather per input (a handful of launches instead of one per term)."""
+    inputs: the powers x_j^0..x_j^degree, then one gather per input (a
+    handful of launches instead of one per term)."""
     nin = xn.shape[-1]
     expo = _const(cache, ("expo", nin, degree), lambda: poly_exponents(nin, degree).T,
                   torch.empty((), dtype=torch.int64, device=xn.device))  # (nin, nterms)
-    pw = torch.cumprod(torch.cat(
-        [torch.ones_like(xn)[..., None], xn[..., None].expand(*xn.shape, degree)], dim=-1),
-        dim=-1)  # (..., nin, degree + 1)
+    # the powers by repeated products: the backward of torch.cumprod reads
+    # its input back to the host (one synchronisation per call)
+    pows = [torch.ones_like(xn)]
+    for _ in range(degree):
+        pows.append(pows[-1] * xn)
+    pw = torch.stack(pows, dim=-1)  # (..., nin, degree + 1)
     out = pw[..., 0, :].index_select(-1, expo[0])
     for j in range(1, nin):
         out = out * pw[..., j, :].index_select(-1, expo[j])
@@ -138,10 +141,12 @@ class PkEmulator:
         lo = _const(self._cache, "blend_lo", lambda: self.blend_lo, x)
         hi = _const(self._cache, "blend_hi", lambda: self.blend_hi, x)
         m = _const(self._cache, "blend_margin", lambda: self.blend_margin, x)
-        w = torch.prod(
-            _smoothstep((x - (lo - m)) / m) * _smoothstep(((hi + m) - x) / m),
-            dim=-1, keepdim=True,
-        )
+        bump = _smoothstep((x - (lo - m)) / m) * _smoothstep(((hi + m) - x) / m)
+        # the product over the inputs by slices: the backward of torch.prod
+        # reads its input back to the host
+        w = bump[..., :1]
+        for j in range(1, bump.shape[-1]):
+            w = w * bump[..., j:j + 1]
         return (1.0 - w) * pred + w * pred_in
 
     def unpack(self, y):

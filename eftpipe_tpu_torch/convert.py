@@ -9,7 +9,9 @@ them over here, so that both sides compute from IDENTICAL constants:
   spline table given as dicts of their fields; the icc tables inside ``wt``);
 * :func:`likelihood_from_numpy` — the likelihood's data vector, inverse
   covariance, gather indices, binning matrices and marginal prior;
-* :func:`emulator_from_numpy` — a ``PkEmulator`` from its arrays.
+* :func:`emulator_from_numpy` — a ``PkEmulator`` from its arrays;
+* :func:`driver_state_from_numpy` — the state of a running chain from an
+  MCMC driver checkpoint, the JAX driver's or the port's.
 """
 
 from __future__ import annotations
@@ -131,3 +133,31 @@ def likelihood_from_numpy(pipelines: dict, state: dict) -> EFTLikelihood:
                 like._bg_index.setdefault(p, len(like._bg_index))
     like._to_device()
     return like
+
+
+def driver_state_from_numpy(arrays) -> dict:
+    """The state of a running chain from the arrays of an MCMC driver
+    checkpoint (an ``np.load``-ed ``<out>.checkpoint.npz``), written by the
+    JAX package's driver or by the port's: ``walkers``, ``chain`` and
+    ``logps`` (each as a list of one block, empty when no step was taken),
+    ``nsteps_done``, the HMC metric (``hmc_eps``, ``hmc_inv_mass``) when
+    present, and either the port's ``generator_state`` or, for a JAX
+    checkpoint, ``seed``: a JAX key cannot drive a ``torch.Generator``, so
+    its bytes (little-endian, the first 8) seed the generator instead."""
+    files = set(getattr(arrays, "files", arrays))
+    chain, logps = np.asarray(arrays["chain"]), np.asarray(arrays["logps"])
+    state = dict(walkers=np.asarray(arrays["walkers"]),
+                 chain=[chain] if chain.size else [],
+                 logps=[logps] if logps.size else [],
+                 nsteps_done=int(arrays["nsteps_done"]))
+    for name in ("hmc_eps", "hmc_inv_mass"):
+        if name in files:
+            state[name] = np.asarray(arrays[name])
+    if "generator_state" in files:
+        state["generator_state"] = np.asarray(arrays["generator_state"], np.uint8)
+    elif "key" in files:
+        key = np.ascontiguousarray(arrays["key"]).tobytes()
+        state["seed"] = int.from_bytes(key[:8], "little")
+    else:
+        raise ValueError("checkpoint holds neither generator_state nor key")
+    return state

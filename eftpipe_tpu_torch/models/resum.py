@@ -154,7 +154,12 @@ def ir_filters(rt: dict, plin_kin):
 def _xpyp(rt: dict, x, y):
     """Stack [X, X², ..., X^nir, Y, XY, ..., X^{nir-1}Y] (pybird.py:1402-1407)."""
     nir = rt["nir"]
-    xp = torch.cumprod(torch.stack([x] * nir, dim=-2), dim=-2)  # (W, nir, nsr)
+    # the powers by repeated products: the backward of torch.cumprod reads
+    # its input back to the host (one synchronisation per call)
+    pows = [x]
+    for _ in range(nir - 1):
+        pows.append(pows[-1] * x)
+    xp = torch.stack(pows, dim=-2)  # (W, nir, nsr)
     ones = torch.ones_like(x)[..., None, :]
     xpy = y[..., None, :] * torch.cat([ones, xp[..., :-1, :]], dim=-2)
     return torch.cat([xp, xpy], dim=-2)  # (W, 2 nir, nsr)

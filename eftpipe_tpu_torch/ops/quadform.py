@@ -177,6 +177,21 @@ def qf_real_plain(w, m):
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
+def qf_real_backward_plain(g, w, m):
+    """The backward of ``qf_real``: ∂/∂w of Σ g ⊙ (wᵀ M w) = g ⊙ ((M + Mᵀ) w),
+    g (W, BL, S), w (W, N, S), m (BL, N, N) → (W, N, S); the (M + Mᵀ) w
+    intermediate is chunked over walkers like the plain forward's.  Plain
+    torch on either device: the JAX package's JVP of the form is two XLA
+    einsums too (``pallas_kernels.py:423-438``)."""
+    msym = m + m.transpose(-1, -2)
+    per = m.shape[0] * m.shape[1] * w.shape[-1] * w.element_size()
+    outs = []
+    for a, b in _walker_chunks(w.shape[0], per):
+        v = torch.einsum("wms,bnm->wbns", w[a:b], msym)
+        outs.append(torch.einsum("wbs,wbns->wns", g[a:b], v))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
 def cf_half_plain(m, zr, zi):
     """One real part ``m`` of a complex M against both parts of z:
     out1 = Σ_n zr⊙(m zr) − zi⊙(m zi), out2 = Σ_n zr⊙(m zi) + zi⊙(m zr)."""
@@ -354,8 +369,8 @@ def _cf_half_forward(m, zr, zi, prepared=None):
 # ---------------------------------------------------------------------------
 
 class _QuadFormReal(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU).  Backward in
-    plain torch: ∂/∂w = g ⊙ ((M̃ + M̃ᵀ) w), chunked like the plain forward."""
+    """Forward: the kernel (CUDA) or the plain version (CPU).  Backward:
+    :func:`qf_real_backward_plain` on either device."""
 
     @staticmethod
     def forward(ctx, w, m, prepared):
@@ -368,13 +383,7 @@ class _QuadFormReal(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             raise NotImplementedError(
                 "quad_form_real: no gradient with respect to the constant matrices")
-        msym = m + m.transpose(-1, -2)
-        per = m.shape[0] * m.shape[1] * w.shape[-1] * w.element_size()
-        outs = []
-        for a, b in _walker_chunks(w.shape[0], per):
-            v = torch.einsum("wms,bnm->wbns", w[a:b], msym)
-            outs.append(torch.einsum("wbs,wbns->wns", g[a:b], v))
-        return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)), None, None
+        return qf_real_backward_plain(g, w, m), None, None
 
 
 class _CfContract(torch.autograd.Function):

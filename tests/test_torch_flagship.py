@@ -53,6 +53,56 @@ def default_models(tmp_path_factory):
     return jmodel, tmodel, twork
 
 
+@pytest.fixture(scope="module")
+def lite_jax_ref(models):
+    """The JAX flagship-lite's log-posterior and ``jax.grad`` at 4 seeded
+    points: one jitted ``jax.vmap(jax.value_and_grad(logp))`` (an eager
+    ``jax.vmap`` of ``logp`` alone compiles ~900 small ops, 30 s on the
+    CPU)."""
+    jmodel, tmodel, _ = models
+    thetas = seeded_points(tmodel.theta0)
+    logp, grad = jax.jit(jax.vmap(jax.value_and_grad(jmodel.logp)))(jnp.asarray(thetas))
+    return thetas, np.asarray(logp), np.asarray(grad)
+
+
+@pytest.fixture(scope="module")
+def default_jax_ref(default_models):
+    """The JAX default flagship's log-posterior and gradient at 4 seeded
+    points, by JAX's own transformations of its ``FlagshipModel.logp``
+    taken in the two pieces that function chains, ``logp =
+    like.logp(inputs(params), params)`` (``eftpipe_tpu/api/flagship.py:74-87``;
+    its float64 casts are the identity here): the likelihood and its
+    ``jax.grad`` with respect to the inputs and the parameters, jitted, and
+    the solver emulator's inputs with their Jacobian by ``jax.jvp`` along
+    each parameter (``jax.jacfwd``, keeping the primal), eager.
+    One eager ``jax.vmap`` of the whole ``logp`` compiles ~900 small ops
+    (40 s on the CPU), its gradient as many again, and a ``jit`` of the
+    whole gradient compiles the emulator's ~10⁴-operation polynomial graph
+    (two minutes)."""
+    jmodel, tmodel, _ = default_models
+    thetas = seeded_points(tmodel.theta0, seed=2)
+
+    def cosmo(th):
+        params = jmodel.params_dict(th)
+        return {t: p.inputs(params) for t, p in jmodel.providers.items()}
+
+    def with_jacobian(th):
+        push = lambda v: jax.jvp(cosmo, (th,), (v,))
+        return jax.vmap(push, out_axes=(None, -1))(jnp.eye(th.size))
+
+    def like(inputs, th):
+        return jmodel.like.logp(inputs, jmodel.params_dict(th))["logp"]
+
+    th = jnp.asarray(thetas)
+    inputs, jac = jax.vmap(with_jacobian)(th)   # each Jacobian leaf (4, ..., 9)
+    logp, (g_inputs, grad) = jax.jit(jax.vmap(jax.value_and_grad(like, argnums=(0, 1))))(
+        inputs, th)
+    for g_leaf, j_leaf in zip(jax.tree_util.tree_leaves(g_inputs),
+                              jax.tree_util.tree_leaves(jac)):
+        grad = grad + jnp.einsum("w...,w...k->wk", g_leaf, j_leaf)
+    return thetas, np.asarray(logp), np.asarray(grad)
+
+
 def test_default_flagship_is_the_jax_default(default_models):
     jmodel, tmodel, twork = default_models
     for name, spec in tmodel.like.tracers.items():
@@ -72,11 +122,10 @@ def test_default_flagship_is_the_jax_default(default_models):
     assert meta["window_nmax"] == 2048
 
 
-def test_default_flagship_logp_matches_jax_float64(default_models):
+def test_default_flagship_logp_matches_jax_float64(default_models, default_jax_ref):
     """|Δlogp| ≤ 1e-8·|logp| on 4 seeded points (float64)."""
-    jmodel, tmodel, _ = default_models
-    thetas = seeded_points(tmodel.theta0, seed=2)
-    want = np.asarray(jax.vmap(jmodel.logp)(jnp.asarray(thetas)))
+    _, tmodel, _ = default_models
+    thetas, want, _ = default_jax_ref
     got = tmodel.logp(thetas)
     assert got.shape == (4,) and np.isfinite(want).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-8, atol=0)
@@ -114,11 +163,10 @@ def test_flagship_static_state_matches(models):
         assert spec.pipeline.nt["m22_fold"].shape == (28, 255, 255)
 
 
-def test_flagship_logp_matches_jax_float64(models):
+def test_flagship_logp_matches_jax_float64(models, lite_jax_ref):
     """|Δlogp| ≤ 1e-8·|logp| on 4 seeded points (float64, dense forms)."""
-    jmodel, tmodel, _ = models
-    thetas = seeded_points(tmodel.theta0)
-    want = np.asarray(jax.vmap(jmodel.logp)(jnp.asarray(thetas)))
+    _, tmodel, _ = models
+    thetas, want, _ = lite_jax_ref
     got = tmodel.logp(thetas)
     assert got.shape == (4,) and got.dtype == torch.float64
     assert np.isfinite(want).all()
@@ -204,3 +252,49 @@ def test_growth_and_background_match_goldens_and_host():
         e, da = teh.lcdm_background(torch.tensor([om], dtype=torch.float64), z)
         assert float(e[0]) == pytest.approx(lcdm_hubble(om, z), rel=1e-12)
         assert float(da[0]) == pytest.approx(lcdm_da(om, z), rel=1e-9)
+
+
+def _torch_grad(tmodel, thetas):
+    """∇logp of each walker by autograd through the port's batched logp."""
+    x = torch.tensor(thetas, dtype=torch.float64, requires_grad=True)
+    lp = tmodel.logp(x)
+    (g,) = torch.autograd.grad(lp.sum(), x)
+    return lp.detach().numpy(), g.numpy()
+
+
+def test_flagship_grad_matches_jax_grad(models, lite_jax_ref):
+    """autograd of the port's float64 logp against jax.grad of the JAX
+    flagship-lite on the 4 points of ``lite_jax_ref``, within 1e-6·max|g|
+    per component."""
+    _, tmodel, _ = models
+    thetas, _, want = lite_jax_ref
+    _, got = _torch_grad(tmodel, thetas)
+    assert np.isfinite(want).all() and np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_default_flagship_grad_matches_jax(default_models, default_jax_ref):
+    """The same for the default flagship, on the 4 points of
+    ``default_jax_ref``."""
+    _, tmodel, _ = default_models
+    thetas, _, want = default_jax_ref
+    _, got = _torch_grad(tmodel, thetas)
+    assert np.isfinite(want).all() and np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_bad_walkers_do_not_poison_the_batch_gradient(default_models):
+    """A walker outside the emulator's box and one with NaN parameters in a
+    batch: nothing raises, and every other walker's log-posterior and
+    gradient are finite and those of the batch without them."""
+    _, tmodel, _ = default_models
+    good = seeded_points(tmodel.theta0, n=2, seed=6)
+    out_of_box = tmodel.theta0.copy()
+    out_of_box[0] = 0.8  # omega_cdm above the emulator's box (0.03, 0.7)
+    nan = np.full_like(tmodel.theta0, np.nan)
+    lp_ref, g_ref = _torch_grad(tmodel, good)
+    lp, g = _torch_grad(tmodel, np.stack([good[0], out_of_box, good[1], nan]))
+    assert np.isfinite(g_ref).all() and np.isfinite(lp_ref).all()
+    np.testing.assert_allclose(lp[[0, 2]], lp_ref, rtol=1e-12)
+    np.testing.assert_allclose(g[[0, 2]], g_ref, rtol=1e-10, atol=1e-10 * np.abs(g_ref).max())
+    assert not np.isnan(lp[1]) and lp[3] == -np.inf

@@ -26,6 +26,9 @@ _MODULES = [
     "eftpipe_tpu_torch.ops.quadform", "eftpipe_tpu_torch.ops.fftlog",
     "eftpipe_tpu_torch.ops.interp", "eftpipe_tpu_torch.ops._build",
     "eftpipe_tpu_torch.tables.loop_matrices", "eftpipe_tpu_torch.tables.qcoef",
+    "eftpipe_tpu_torch.parallel", "eftpipe_tpu_torch.parallel.diagnostics",
+    "eftpipe_tpu_torch.parallel.sampler", "eftpipe_tpu_torch.parallel.hmc",
+    "eftpipe_tpu_torch.parallel.mcmc",
 ]
 
 
@@ -38,6 +41,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     code = (
         "import sys, importlib\n"
         f"[importlib.import_module(m) for m in {_MODULES!r}]\n"
+        "import eftpipe_tpu_torch as p\n"
+        "assert (p.EnsembleSampler, p.MCMCDriver, p.HMC)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m == 'eftpipe_tpu' or m.startswith('eftpipe_tpu.')]\n"
         "assert not bad, bad\n"
