@@ -48,7 +48,22 @@ Phases, each printing one JSON line:
    (``MCMCDriver(sampler_kind="hmc")``, 64 chains, 10 warmup and 10
    sampling steps).  Each sampler path counts its ``logp`` calls and its
    kernel launches, which must be 4 per call.
-8. ``kernels`` line (launches by path), the card's ``nvidia-smi`` line, and
+8. ``analysis`` — the config-driven analysis (``Analysis.from_config``, its
+   config built as a dict): LRG (z=0.70, l=0,2,4), ELG (z=0.845, l=0,2,
+   chained) and their cross X, each with IR resummation, AP and a survey
+   window (``window_nmax=2048``), solver-emulator cosmology, west-coast
+   basis, b2/b4 computed from c2/c4 by a lambda string, Jeffreys
+   marginalisation, binned mock data from ``nonlinear_Plk_grid`` at the
+   fiducial point and its Gaussian covariance.  Float32 through the kernels
+   against the float64 plain path on the 64 seeded points (|dlogp| < 0.02),
+   ``logp`` timed at W=1024, its host syncs (0) and its ``qf_real`` launches
+   (two per tracer pipeline: 6 per ``logp``), ``laplace_cov`` at theta0
+   (finite, positive-definite), ``run_mcmc`` (stretch, 256 walkers,
+   ``init="laplace"``, 10 steps to a checkpoint, resumed to 15),
+   ``ChainProducts`` + ``BestfitModel`` (finite chi2); then a template-fit
+   config (``fixed_template``, LRG) whose ``qf_real`` launches happen at
+   build (``freeze_template``) and never in ``logp``.
+9. ``kernels`` line (launches by path), the card's ``nvidia-smi`` line, and
    the final ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises: the exit code is then non-zero and no final line is
@@ -72,7 +87,11 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device (torch.cuda.is_available() is False)\n")
     sys.exit(2)
 
-from eftpipe_tpu_torch.api.flagship import build_flagship, FIDUCIAL
+from eftpipe_tpu_torch.analysis import BestfitModel, ChainProducts
+from eftpipe_tpu_torch.api.flagship import build_flagship, synthetic_mask_file, FIDUCIAL
+from eftpipe_tpu_torch.api.orchestrate import Analysis
+from eftpipe_tpu_torch.boltzmann.eh98 import eh98_pk
+from eftpipe_tpu_torch.likelihood.covariance import GaussianCovariance, Multipole
 from eftpipe_tpu_torch.boltzmann.emulator import SolverEmulatorProvider
 from eftpipe_tpu_torch.likelihood.parambasis import WestCoastBasis
 from eftpipe_tpu_torch.models.ap import lcdm_da, lcdm_hubble
@@ -100,6 +119,11 @@ CHUNK_TRIALS = (256, 512)  # walker chunks tried, beside the whole batch
 LITE_BATCH = 256
 GRAD_REL_BUDGET = 1e-2
 QF_PER_LOGP = 4  # qf_real launches of one logp call: two per tracer
+# the analysis phase's qf_real launches of one logp call: two per tracer
+# pipeline (P22 and the CF loop, models/nonlinear.py::nonlinear_pscf), three
+# pipelines (LRG, ELG, X); a frozen template launches none per logp
+QF_PER_ANALYSIS_LOGP = 6
+ANALYSIS_KOUT = np.round(np.arange(0.01, 0.2049, 0.005), 6)
 
 REPLACES = {
     "qf_real": "eftpipe_tpu/ops/pallas_kernels.py:313",
@@ -492,15 +516,15 @@ def qf_backward_rows(gen: torch.Generator, shapes) -> list:
     return rows
 
 
-class CountedLogp:
-    """A model's ``logp`` that counts its calls."""
+class Counted:
+    """A callable (a model's bound ``logp``) that counts its calls."""
 
-    def __init__(self, model):
-        self.model, self.calls = model, 0
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
 
-    def __call__(self, thetas, chunk=None):
+    def __call__(self, *args, **kwargs):
         self.calls += 1
-        return self.model.logp(thetas, chunk=chunk)
+        return self.fn(*args, **kwargs)
 
 
 def sampling_phase(model, ref_model, lines: list) -> dict:
@@ -546,7 +570,7 @@ def sampling_phase(model, ref_model, lines: list) -> dict:
     x0 = torch.as_tensor(model.theta0, dtype=f32, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
         # ---- stretch: 10 steps to a checkpoint, then resumed to 15 ---------
-        counted = CountedLogp(model)
+        counted = Counted(model.logp)
         kw = dict(logp=counted, ndim=9, nwalkers=1024, block=5, rhat_tol=-1.0,
                   out=os.path.join(tmp, "stretch"), device=dev)
         qf.reset_launch_counts()
@@ -586,7 +610,7 @@ def sampling_phase(model, ref_model, lines: list) -> dict:
                              f"{launches}, expected {expected_calls} and 4 per call")
 
         # ---- hmc: 10 warmup transitions, then two blocks of five ----------
-        counted = CountedLogp(model)
+        counted = Counted(model.logp)
         driver = MCMCDriver(logp=counted, ndim=9, sampler_kind="hmc", nwalkers=64,
                             n_leapfrog=4, warmup_steps=10, block=5, rhat_tol=-1.0,
                             inv_mass0=(1e-2 * model.theta0) ** 2,
@@ -734,6 +758,253 @@ def stages_check(nw: int, lines: list) -> None:
             raise SystemExit(f"chip_smoke: stages {label}: launch counts {launches}")
 
 
+def analysis_config(workdir: str, with_like: bool = True) -> dict:
+    """The production-shaped three-tracer analysis as a config dict: LRG and
+    ELG with their cross X, each with IR resummation, AP and a survey window
+    from ``synthetic_mask_file``; solver-emulator cosmology; b2/b4 computed
+    from c2/c4; Jeffreys marginalisation; ELG chained."""
+    om_fid = (FIDUCIAL["omega_b"] + FIDUCIAL["omega_cdm"]) / FIDUCIAL["h"] ** 2
+    default = {
+        "with_IRresum": True,
+        "with_APeffect": {"Om_AP": om_fid, "rdrag_AP": 147.66, "h_AP": FIDUCIAL["h"]},
+        "boltzmann": {"name": "solver_emulator", "om_fid": om_fid},
+    }
+    tracers = {"default": default,
+               "LRG": {"z": 0.70, "nd": 5e-5, "ls": [0, 2, 4]},
+               "ELG": {"z": 0.845, "nd": 1.85e-4, "ls": [0, 2, 4]},
+               "X": {"z": 0.77, "ls": [0, 2], "cross": ["LRG", "ELG"]}}
+    for name, smask in (("LRG", 350.0), ("ELG", 250.0), ("X", 300.0)):
+        mask = os.path.join(workdir, f"mask_{name}.txt")
+        if not os.path.exists(mask):
+            synthetic_mask_file(mask, smask)
+        tracers[name]["with_window"] = {"window_configspace_file": mask, "Nmax": 2048}
+    params = {
+        "omega_b": FIDUCIAL["omega_b"], "ns": FIDUCIAL["ns"],
+        "omega_cdm": {"prior": {"min": 0.09, "max": 0.15}, "ref": FIDUCIAL["omega_cdm"]},
+        "h": {"prior": {"min": 0.55, "max": 0.80}, "ref": FIDUCIAL["h"]},
+        "ln10As": {"prior": {"min": 2.5, "max": 3.5}, "ref": FIDUCIAL["ln10As"]},
+    }
+    for name, b1, c2 in (("LRG", 2.2, 0.8 * 2 ** 0.5), ("ELG", 1.3, 0.5 * 2 ** 0.5)):
+        params.update({
+            f"{name}_b1": {"prior": {"min": 0.5, "max": 4.0}, "ref": b1},
+            f"{name}_c2": {"prior": {"min": -4.0, "max": 4.0}, "ref": c2},
+            f"{name}_c4": 0.0,
+            f"{name}_b2": f"lambda {name}_c2, {name}_c4: ({name}_c2 + {name}_c4) / np.sqrt(2.)",
+            f"{name}_b4": f"lambda {name}_c2, {name}_c4: ({name}_c2 - {name}_c4) / np.sqrt(2.)",
+        })
+    info = {"theory": {"cache_dir": os.path.join(workdir, "cache"), "tracers": tracers},
+            "params": params}
+    if with_like:
+        prior = {"b3": {"scale": 2.0}, "cct": {"scale": 4.0}, "cr1": {"scale": 8.0},
+                 "cr2": {"scale": 4.0}, "ce0": {"scale": 4.0}, "cequad": {"scale": 2.0}}
+        info["likelihood"] = {
+            "tracers": ["LRG", "ELG", "X"],
+            "data": {n: {"path": os.path.join(workdir, f"data_{n}.txt"), "ls": ls,
+                         "kmin": kmin, "kmax": kmax}
+                     for n, ls, kmin, kmax in (("LRG", [0, 2, 4], 0.01, 0.20),
+                                               ("ELG", [0, 2], 0.03, 0.20),
+                                               ("X", [0, 2], 0.03, 0.15))},
+            "cov": os.path.join(workdir, "cov.txt"),
+            "chained": {"ELG": True}, "binned": True, "jeffreys": True,
+            "marg": {"LRG_": prior, "ELG_": prior,
+                     "X_": {"ce0": {"scale": 2.0}, "cequad": {"scale": 2.0}}},
+        }
+    return info
+
+
+def analysis_mock_data(workdir: str, info: dict) -> None:
+    """Binned mock multipoles of each tracer at the fiducial point (float64
+    plain path on the card) and their block-diagonal Gaussian covariance
+    (volume 4 (Gpc/h)^3, shot noise 1/nd), written into ``workdir``."""
+    th = Analysis.from_config(info, dtype=torch.float64, device="cuda", quadform="plain")
+    fid = th.space.to_dict(th.space.theta0())  # fixed, sampled and computed
+    kout = ANALYSIS_KOUT
+    shot = {"LRG": 1 / 5e-5, "ELG": 1 / 1.85e-4, "X": 0.0}
+    blocks = []
+    with torch.no_grad():
+        for name, chained in (("LRG", False), ("ELG", True), ("X", False)):
+            ls, _, plk = th.nonlinear_Plk_grid(name, fid, chained=chained, binned=True, kout=kout)
+            plk = plk.double().cpu().numpy()
+            np.savetxt(os.path.join(workdir, f"data_{name}.txt"),
+                       np.column_stack([kout] + [plk[i] for i in range(len(ls))]),
+                       header="k " + " ".join(f"P{l}" for l in ls))
+            kedges = np.concatenate([kout - 0.0025, [kout[-1] + 0.0025]])
+            mp = Multipole(p0=plk[0] + shot[name] + 1e3, p2=plk[1],
+                           p4=plk[2] if len(ls) > 2 else None)
+            blocks.append(GaussianCovariance(kedges, volume=4.0)(ls, ls, "aa->aaaa", mp))
+    from scipy.linalg import block_diag
+
+    np.savetxt(os.path.join(workdir, "cov.txt"), block_diag(*blocks))
+
+
+def template_check(workdir: str) -> dict:
+    """The template-fit mode on one LRG tracer (``fixed_template``, full
+    widths, float32 kernels): ``freeze_template`` launches ``qf_real`` at
+    build (twice, at W=1), ``logp`` launches it no time."""
+    k = np.logspace(-5, 0, 400)
+    cosmo = [torch.full((1,), FIDUCIAL[n], dtype=torch.float64)
+             for n in ("omega_b", "omega_cdm", "h", "ln10As", "ns")]
+    plin = os.path.join(workdir, "plin.txt")
+    np.savetxt(plin, np.column_stack([k, eh98_pk(torch.as_tensor(k), *cosmo, 0.7)[0][0].numpy()]))
+    info = {"theory": {"cache_dir": os.path.join(workdir, "cache"), "tracers": {"LRG": {
+        "z": 0.7, "nd": 5e-5, "ls": [0, 2, 4], "with_IRresum": True,
+        "boltzmann": {"name": "fixed_template", "path": plin}}}},
+        "params": {"f": {"prior": {"min": 0.4, "max": 1.2}, "ref": 0.8},
+                   "LRG_b1": {"prior": {"min": 1.0, "max": 4.0}, "ref": 2.2},
+                   "LRG_b2": 0.8, "LRG_b4": 0.8}}
+    with torch.no_grad():
+        th = Analysis.from_config(info, dtype=torch.float64, device="cuda", quadform="plain")
+        ls, _, plk = th.nonlinear_Plk_grid("LRG", {"f": 0.8, "LRG_b1": 2.2}, binned=True,
+                                           kout=ANALYSIS_KOUT)
+    plk = plk.double().cpu().numpy()
+    np.savetxt(os.path.join(workdir, "data_tpl.txt"),
+               np.column_stack([ANALYSIS_KOUT] + list(plk)), header="k P0 P2 P4")
+    np.savetxt(os.path.join(workdir, "cov_tpl.txt"),
+               np.diag((0.02 * np.abs(plk).ravel() + 10.0) ** 2))
+    info["likelihood"] = {"tracers": ["LRG"], "cov": os.path.join(workdir, "cov_tpl.txt"),
+                          "data": {"LRG": {"path": os.path.join(workdir, "data_tpl.txt"),
+                                           "ls": [0, 2, 4], "kmin": 0.01, "kmax": 0.2}}}
+    qf.reset_launch_counts()
+    an = Analysis.from_config(info, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    at_build = dict(qf.LAUNCHES)
+    thetas = torch.as_tensor(accuracy_batch(an.space.theta0()).repeat(16, axis=0)[:1024],
+                             dtype=torch.float32, device="cuda")
+    qf.reset_launch_counts()
+    with torch.no_grad():
+        lp = an.logp(thetas)
+        torch.cuda.synchronize()
+        per_logp = dict(qf.LAUNCHES)
+        ms = host_ms(lambda: an.logp(thetas))
+    return dict(qf_real_launches_at_build=at_build["qf_real"],
+                qf_real_launches_per_logp=per_logp["qf_real"], logp_ms_w1024=ms,
+                all_finite=bool(torch.isfinite(lp).all()))
+
+
+def analysis_phase(lines: list) -> dict:
+    """The config-driven analysis path; returns its launches by shape (the
+    64-point check and the timed batches)."""
+    f32, f64 = torch.float32, torch.float64
+    workdir = os.path.join(WORKDIR, "analysis")
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.perf_counter()
+    analysis_mock_data(workdir, analysis_config(workdir, with_like=False))
+    mock_s = time.perf_counter() - t0
+    info = analysis_config(workdir)
+    t0 = time.perf_counter()
+    an = Analysis.from_config(info, dtype=f32, device="cuda")
+    phase_a_s = time.perf_counter() - t0
+    ref = Analysis.from_config(info, dtype=f64, device="cuda", quadform="plain")
+    theta0 = an.space.theta0()
+    thetas = accuracy_batch(theta0)
+    rng = np.random.default_rng(12)
+    nb, n_timed = 1024, 3
+    batches = [torch.as_tensor(theta0[None, :] * (1.0 + 1e-3 * rng.standard_normal((nb, theta0.size))),
+                               dtype=f32, device="cuda") for _ in range(n_timed + 1)]
+    with torch.no_grad():
+        lp_ref = ref.logp(thetas).cpu().numpy()
+        an.logp(batches[-1])                                    # warm-up
+        qf.reset_launch_counts()
+        lp = an.logp(thetas)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = [an.logp(b) for b in batches[:n_timed]]
+        torch.cuda.synchronize()
+        batch_s = (time.perf_counter() - t0) / n_timed
+        launches = dict(qf.LAUNCHES)
+        by_shape = dict(qf.LAUNCHES_BY_SHAPE)
+        trace = profile_batch(lambda: an.logp(batches[0]), batch_s)
+        syncs = sync_sites(lambda: an.logp(batches[0]))
+        torch.cuda.reset_peak_memory_stats()
+        an.logp(batches[0])
+        peak = torch.cuda.max_memory_allocated()
+    lp_np = lp.double().cpu().numpy()
+    dlogp = float(np.abs(lp_np - lp_ref).max())
+    finite = bool(np.isfinite(lp_np).all() and np.isfinite(lp_ref).all()
+                  and all(torch.isfinite(x).all() for x in timed))
+    expected_qf = QF_PER_ANALYSIS_LOGP * (1 + n_timed)
+
+    # the Laplace covariance at theta0: float32 kernels, and the float64
+    # plain path's for comparison
+    qf.reset_launch_counts()
+    t0 = time.perf_counter()
+    cov = an.laplace_cov()
+    laplace_s = time.perf_counter() - t0
+    laplace_launches = qf.LAUNCHES["qf_real"]
+    cov_ref = ref.laplace_cov()
+    evals = np.linalg.eigvalsh(cov)
+    laplace_ok = bool(np.isfinite(cov).all() and evals.min() > 0)
+    sig, sig_ref = np.sqrt(np.diag(cov)), np.sqrt(np.diag(cov_ref))
+
+    # run_mcmc: stretch, 256 walkers from the Laplace scatter, 10 steps to a
+    # checkpoint, then resumed to 15; then the chain's products
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "analysis")
+        an.logp, an.derived = Counted(an.logp), Counted(an.derived)
+        qf.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = an.run_mcmc(nwalkers=256, out=out, max_steps=10, block=5, rhat_tol=-1.0,
+                            init="laplace", key=0)
+        res = an.run_mcmc(nwalkers=256, out=out, max_steps=15, block=5, rhat_tol=-1.0,
+                          init="laplace", key=0)
+        torch.cuda.synchronize()
+        mcmc_s = time.perf_counter() - t0
+        mcmc_launches = qf.LAUNCHES["qf_real"]
+        logp_calls, derived_calls = an.logp.calls, an.derived.calls
+        del an.logp, an.derived
+        extended = (res.chain.shape == (15, 256, theta0.size)
+                    and bool(np.array_equal(res.chain[:10], first.chain)))
+        chains = ChainProducts.from_prefix(out, burn_in=0.3)
+        best = BestfitModel.from_chains(an, chains)
+        chi2 = best.chi2()
+    tpl = template_check(workdir)
+    line = emit(
+        "analysis", config="LRG(l=0,2,4) + ELG(l=0,2 chained) + X=LRGxELG, IR, AP, window "
+        "nmax=2048, solver_emulator, westcoast, Jeffreys, binned; nfft_loop=256, nkin=200",
+        dtype="float32", reference="float64 plain path on the card",
+        ndim=an.space.ndim, sampled=an.space.sampled, ndata=an.like.ndata,
+        nmarg=an.like.marginal.nmarg, mock_data_seconds=mock_s, phase_a_seconds=phase_a_s,
+        n_points=int(lp_np.size), all_finite=finite, max_abs_dlogp=dlogp,
+        budget=LOGP_ABS_BUDGET, logp_range=[float(lp_ref.min()), float(lp_ref.max())],
+        batch=nb, logp_ms=batch_s * 1e3, evals_per_s=nb / batch_s, peak_memory_bytes=peak,
+        host_syncs_per_logp=len(syncs), sync_sites=sorted(set(syncs)),
+        qf_real_launches=launches["qf_real"], expected_qf_real=expected_qf,
+        qf_real_per_logp=launches["qf_real"] / (1 + n_timed),
+        expected_qf_real_per_logp=QF_PER_ANALYSIS_LOGP,
+        laplace=dict(finite=bool(np.isfinite(cov).all()), positive_definite=laplace_ok,
+                     min_eigenvalue=float(evals.min()), seconds=laplace_s,
+                     qf_real_launches=laplace_launches,
+                     sigma_rel_to_float64=float(np.max(np.abs(sig / sig_ref - 1)))),
+        run_mcmc=dict(sampler="stretch", nwalkers=256, block=5, steps=15, resumed_from=10,
+                      init="laplace", chain_shape=list(res.chain.shape), extended=extended,
+                      all_finite=bool(np.isfinite(res.logps).all()),
+                      accept_rate=res.accept_rate, seconds=mcmc_s,
+                      evals_per_s=256 * 15 / mcmc_s, logp_calls=logp_calls,
+                      derived_calls=derived_calls, qf_real_launches=mcmc_launches,
+                      expected_qf_real=QF_PER_ANALYSIS_LOGP * (logp_calls + derived_calls)),
+        bestfit=dict(chi2=chi2, samples=len(chains.samples)),
+        template=tpl, device_busy_ms=trace.get("device_busy_ms"),
+        device_idle_share=trace.get("device_idle_share"), top=trace.get("top"))
+    lines.append(line)
+    checks = {
+        "finite logp": finite,
+        f"|dlogp| {dlogp} < {LOGP_ABS_BUDGET}": dlogp < LOGP_ABS_BUDGET,
+        f"host syncs per logp {len(syncs)} == 0": not syncs,
+        f"qf_real launches {launches['qf_real']} == {expected_qf}": launches["qf_real"] == expected_qf,
+        "laplace_cov finite and positive-definite": laplace_ok,
+        "stretch chain resumed and extended": extended and bool(np.isfinite(res.logps).all()),
+        f"mcmc launches {mcmc_launches}": mcmc_launches == line["run_mcmc"]["expected_qf_real"],
+        f"bestfit chi2 {chi2.get('chi2')} finite": bool(np.isfinite(chi2.get("chi2", np.nan))),
+        f"template launches {tpl}": (tpl["qf_real_launches_at_build"] == 2
+                                     and tpl["qf_real_launches_per_logp"] == 0
+                                     and tpl["all_finite"]),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: analysis: failed {failed}")
+    return by_shape
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -809,6 +1080,7 @@ def main() -> None:
         dict(with_window=False, cosmology="eh98"), nb=LITE_BATCH, n_timed=1,
         chunk_trials=(), full=False, lines=lines)
     stages_check(64, lines)
+    by_path["analysis"] = analysis_phase(lines)
 
     # ---- the kernels line: one row per kernel and shape the paths launched,
     # with the launches of each path and their sum -------------------------

@@ -149,6 +149,15 @@ def eh98_pk(kin_h, omega_b, omega_cdm, h, ln10as, ns, z: float):
     return pk_h, f, e, da, s[..., 0]
 
 
+def sigma_r(kh, pk, r: float = 8.0):
+    """σ(R) from P(k) on a log-spaced grid [h/Mpc, (Mpc/h)³] via the
+    top-hat-window integral σ² = ∫ dk k² P W²(kR) / 2π²; pk (W, nk) → (W,)."""
+    x = kh * r
+    w = 3.0 * (torch.sin(x) - x * torch.cos(x)) / x**3
+    integ = kh**3 * pk * w * w / (2.0 * math.pi**2)
+    return torch.sqrt(torch.trapezoid(integ, torch.log(kh), dim=-1))
+
+
 @dataclass
 class EisensteinHuProvider:
     """On-device cosmology provider for a tracer at effective redshift z."""
@@ -158,22 +167,45 @@ class EisensteinHuProvider:
     da_fid: float | None = None  # dimensionless H0·DA of the fiducial cosmology
     h_fid: float | None = None   # dimensionless H/H0 of the fiducial cosmology
     use_ap: bool = True
+    rdrag_fid: float | None = None  # Mpc: enables the rdrag·h-rescaled α's
+    h0_fid: float | None = None     # H0/100 of the fiducial cosmology
     _kin: dict = field(default_factory=dict, repr=False)  # (device, dtype) → cfg.kin
 
-    def inputs(self, params) -> CosmoInputs:
-        """``params``: name → (W,) tensor, all on one device in one dtype."""
-        h = params["h"]
+    def _kin_like(self, h):
         key = (h.device, h.dtype)
         if key not in self._kin:
             self._kin[key] = torch.as_tensor(self.cfg.kin, dtype=h.dtype, device=h.device)
-        kin = self._kin[key]
-        pk, f, e, da, _ = eh98_pk(
-            kin, params["omega_b"], params["omega_cdm"], h,
+        return self._kin[key]
+
+    def _background(self, params):
+        h = params["h"]
+        return eh98_pk(
+            self._kin_like(h), params["omega_b"], params["omega_cdm"], h,
             params["ln10As"], params["ns"], self.zeff,
         )
+
+    def _q(self, f, e, da):
         if self.use_ap and self.da_fid is not None:
-            qperp = da / self.da_fid
-            qpar = self.h_fid / e
-        else:
-            qperp = qpar = torch.ones_like(f)
+            return da / self.da_fid, self.h_fid / e
+        return torch.ones_like(f), torch.ones_like(f)
+
+    def inputs(self, params) -> CosmoInputs:
+        """``params``: name → (W,) tensor, all on one device in one dtype."""
+        pk, f, e, da, _ = self._background(params)
+        qperp, qpar = self._q(f, e, da)
         return CosmoInputs(plin=pk, f=f, qperp=qperp, qpar=qpar)
+
+    def derived(self, params) -> dict:
+        """Chain columns (upstream theory.py:611-648): fz, fsigma8_z and
+        α⊥/α∥ — rescaled by (rdrag_fid·h0_fid)/(rdrag·h) when the fiducial
+        sound horizon is configured (pybird.py:1564-1579), else = q's;
+        each (W,)."""
+        pk, f, e, da, rdrag = self._background(params)
+        s8z = sigma_r(self._kin_like(params["h"]), pk)
+        qperp, qpar = self._q(f, e, da)
+        if self.rdrag_fid is not None and self.h0_fid is not None:
+            ratio = (self.rdrag_fid * self.h0_fid) / (rdrag * params["h"])
+            alperp, alpara = qperp * ratio, qpar * ratio
+        else:
+            alperp, alpara = qperp, qpar
+        return dict(fz=f, fsigma8_z=f * s8z, alperp=alperp, alpara=alpara)

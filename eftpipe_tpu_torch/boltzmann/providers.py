@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from ..models.config import EFTConfig
 from ..models.pipeline import CosmoInputs
@@ -33,9 +33,13 @@ def resample_loglog(kin_src, pin_src, kin_dst) -> np.ndarray:
 
 
 def _param(params, name, default, like):
-    """params[name] as a tensor like ``like`` (the default where absent)."""
+    """params[name] as a tensor like ``like`` (the default where absent); a
+    number becomes a fill on the device, not a copy, which would synchronise
+    the stream."""
     value = params.get(name, default)
-    return torch.as_tensor(value, dtype=like.dtype, device=like.device).expand_as(like)
+    if not isinstance(value, torch.Tensor):
+        return torch.full_like(like, float(value))
+    return value.to(dtype=like.dtype, device=like.device).expand_as(like)
 
 
 @dataclass
@@ -45,6 +49,7 @@ class FixedTemplateProvider:
 
     cfg: EFTConfig
     plin: np.ndarray  # on cfg.kin
+    _plin: dict = field(default_factory=dict, repr=False)  # (device, dtype) → plin
 
     @classmethod
     def from_file(cls, cfg: EFTConfig, path, with_hubble_unit: bool = True,
@@ -57,7 +62,10 @@ class FixedTemplateProvider:
 
     def inputs(self, params) -> CosmoInputs:
         f = params["f"]
-        plin = torch.as_tensor(self.plin, dtype=f.dtype, device=f.device)
+        key = (f.device, f.dtype)
+        if key not in self._plin:
+            self._plin[key] = torch.as_tensor(self.plin, dtype=f.dtype, device=f.device)
+        plin = self._plin[key]
         return CosmoInputs(
             plin=_param(params, "A", 1.0, f)[..., None] * plin,
             f=f,

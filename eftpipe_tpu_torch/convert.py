@@ -8,8 +8,12 @@ them over here, so that both sides compute from IDENTICAL constants:
   of a ``TracerPipeline`` (dataclass members such as the FFTLog plans and the
   spline table given as dicts of their fields; the icc tables inside ``wt``);
 * :func:`likelihood_from_numpy` — the likelihood's data vector, inverse
-  covariance, gather indices, binning matrices and marginal prior;
+  covariance, gather indices, binning / interpolation matrices, chained and
+  cross tracers and marginal prior;
 * :func:`emulator_from_numpy` — a ``PkEmulator`` from its arrays;
+* :func:`analysis_from_numpy` — a config-driven ``Analysis``: its pipelines'
+  tables, frozen templates, providers, bases, likelihood blocks and
+  parameter space;
 * :func:`driver_state_from_numpy` — the state of a running chain from an
   MCMC driver checkpoint, the JAX driver's or the port's.
 """
@@ -22,8 +26,10 @@ import torch
 from . import resolve_device, to_device
 from .likelihood.likelihood import EFTLikelihood, TracerSpec, _TracerRuntime
 from .likelihood.marginal import MarginalSetup
-from .likelihood.parambasis import WestCoastBasis
+from .likelihood.parambasis import find_param_basis
 from .boltzmann.emulator import PkEmulator
+from .boltzmann.eh98 import EisensteinHuProvider
+from .boltzmann.providers import FixedTemplateProvider
 from .models.config import EFTConfig
 from .models.fiber import fiber_tables_to
 from .models.nonlinear import nonlinear_tables_to
@@ -83,32 +89,59 @@ def emulator_from_numpy(state: dict) -> PkEmulator:
                          for k, v in state.items()})
 
 
+def _basis(ts: dict):
+    """A parameter basis from ``{"basis": "westcoast" | "eastcoast" | dotted
+    path (default westcoast), "prefix", "cross_prefix" (optional)}``."""
+    cls = find_param_basis(ts.get("basis", "westcoast"))
+    if ts.get("cross_prefix"):
+        return cls(prefix=ts["prefix"], cross_prefix=list(ts["cross_prefix"]))
+    return cls(prefix=ts["prefix"])
+
+
 def likelihood_from_numpy(pipelines: dict, state: dict) -> EFTLikelihood:
     """An ``EFTLikelihood`` over ``pipelines`` (name → TracerPipeline) from
 
     state = {"tracers": {name: {"prefix", "ls", "rows", "cols",
-                                "binning_matrix", "keff"}},
-             "data_vector", "invcov",
-             "marg_names", "marg_mu", "marg_sigma"}   (marg_* optional)
+                                "binning_matrix", "keff",
+                                "basis", "cross_prefix", "chained",
+                                "interp_png", "interp_pg"}},
+             "data_vector", "invcov", "jeffreys",
+             "marg_names", "marg_mu", "marg_sigma" | "marg"}
 
-    without reading any file; tracer order is the order of ``state["tracers"]``.
+    without reading any file; tracer order is the order of
+    ``state["tracers"]``.  ``binning_matrix`` is None for an unbinned tracer,
+    whose ``interp_png``/``interp_pg`` then map k·P onto the data's k (or
+    are absent: no interpolation).  The marginal prior is given either as
+    floats (``marg_names``, ``marg_mu``, ``marg_sigma``) or as the prior
+    config (``marg``: name → {loc, scale}, expression strings allowed).
     """
     like = object.__new__(EFTLikelihood)
     like.tracers, like.runtimes = {}, {}
     offsets = [0]
     for name, ts in state["tracers"].items():
         pipe = pipelines[name]
-        spec = TracerSpec(pipeline=pipe, basis=WestCoastBasis(prefix=ts["prefix"]), data={})
-        matrix = np.asarray(ts["binning_matrix"], np.float64)
-        binning = dict(matrix=matrix, keff=np.asarray(ts["keff"]),
-                       matrix_dev=torch.as_tensor(matrix, dtype=pipe.dtype, device=pipe.device))
+        spec = TracerSpec(pipeline=pipe, basis=_basis(ts), data={},
+                          chained=bool(ts.get("chained", False)))
+        binning = None
+        kout = None
+        if ts.get("binning_matrix") is not None:
+            matrix = np.asarray(ts["binning_matrix"], np.float64)
+            binning = dict(matrix=matrix, keff=np.asarray(ts["keff"]),
+                           matrix_dev=torch.as_tensor(matrix, dtype=pipe.dtype,
+                                                      device=pipe.device))
+            kout = binning["keff"]
+        else:
+            spec.with_binning = False
+            spec.with_interp = ts.get("interp_png") is not None
         rows = np.asarray(ts["rows"])
         like.tracers[name] = spec
         like.runtimes[name] = _TracerRuntime(
-            spec=spec, ls=list(ts["ls"]), ls_tot=list(ts["ls"]), kall=binning["keff"],
-            kmin=None, kmax=None, kout=binning["keff"],
+            spec=spec, ls=list(ts["ls"]), ls_tot=list(ts["ls"]), kall=kout,
+            kmin=None, kmax=None, kout=kout,
             data_vector=np.zeros(rows.size), rows=rows, cols=np.asarray(ts["cols"]),
-            binning_tables=binning)
+            binning_tables=binning,
+            interp_png=None if ts.get("interp_png") is None else np.asarray(ts["interp_png"]),
+            interp_pg=None if ts.get("interp_pg") is None else np.asarray(ts["interp_pg"]))
         offsets.append(offsets[-1] + rows.size)
     like.data_vector = np.asarray(state["data_vector"], np.float64)
     like.ndata = like.data_vector.size
@@ -118,13 +151,20 @@ def likelihood_from_numpy(pipelines: dict, state: dict) -> EFTLikelihood:
     like.invcov = np.asarray(state["invcov"], np.float64)
     like.covmat = like.full_covmat = None
     like.hartlap = None
-    like.jeffreys = False
+    like.jeffreys = bool(state.get("jeffreys", False))
     like.marginal, like._bg_groups, like._bg_index = None, {}, {}
-    if state.get("marg_names"):
-        names = list(state["marg_names"])
-        like.marginal = MarginalSetup(
-            names=names, locs=[float(x) for x in state["marg_mu"]],
-            scales=[float(x) for x in state["marg_sigma"]])
+    if state.get("marg") or state.get("marg_names"):
+        if state.get("marg"):
+            ordering: list[str] = []
+            for spec in like.tracers.values():
+                ordering += [p for p in spec.basis.gaussian_params() if p not in ordering]
+            like.marginal = MarginalSetup.from_config(
+                state["marg"], ordering, jeffreys=like.jeffreys)
+        else:
+            like.marginal = MarginalSetup(
+                names=list(state["marg_names"]), locs=[float(x) for x in state["marg_mu"]],
+                scales=[float(x) for x in state["marg_sigma"]], jeffreys=like.jeffreys)
+        names = like.marginal.names
         for name, spec in like.tracers.items():
             allowed = set(spec.basis.gaussian_params())
             like._bg_groups[name] = [p for p in names if p in allowed]
@@ -133,6 +173,75 @@ def likelihood_from_numpy(pipelines: dict, state: dict) -> EFTLikelihood:
                 like._bg_index.setdefault(p, len(like._bg_index))
     like._to_device()
     return like
+
+
+def provider_from_numpy(cfg: EFTConfig, state: dict):
+    """A cosmology provider from ``state = {"kind": ..., **fields}``:
+    ``fixed_template`` (``plin`` on cfg.kin) or ``eh98`` (``zeff``,
+    ``da_fid``, ``h_fid``, ...).  The solver emulator carries across through
+    :func:`emulator_from_numpy`."""
+    state = dict(state)
+    kind = state.pop("kind")
+    if kind == "fixed_template":
+        return FixedTemplateProvider(cfg=cfg, plin=np.asarray(state["plin"], np.float64))
+    if kind == "eh98":
+        return EisensteinHuProvider(cfg=cfg, **state)
+    raise ValueError(f"unknown provider kind {kind!r}")
+
+
+def frozen_from_numpy(pipe: TracerPipeline, frozen: dict) -> TracerPipeline:
+    """Set a pipeline's frozen template from the JAX pipeline's ``frozen``
+    (``{"nl_out": {...}, "xpyp": ...}``, one evaluation each, no walker
+    axis): the same tensors with a walker axis of one, on its device."""
+    dev = lambda a: torch.as_tensor(np.array(a), dtype=pipe.dtype, device=pipe.device)[None]
+    out = {"nl_out": {k: dev(v) for k, v in frozen["nl_out"].items()}}
+    if frozen.get("xpyp") is not None:
+        out["xpyp"] = dev(frozen["xpyp"])
+    pipe.frozen = out
+    return pipe
+
+
+def analysis_from_numpy(state: dict, device=None, dtype=torch.float64,
+                        quadform: str = "kernel"):
+    """A config-driven ``Analysis`` from plain data:
+
+    state = {"configs": {name: EFTConfig fields},
+             "tables": {name: tables of pipeline_from_numpy},
+             "zeff": {name: float}, "with_rsd": {name: bool} (optional),
+             "frozen": {name: the JAX pipeline's frozen template} (optional),
+             "bases": {name: {"basis", "prefix", "cross_prefix"}},
+             "providers": {name: provider state, see provider_from_numpy},
+             "likes": {block: likelihood state, see likelihood_from_numpy},
+             "params": the config's params block}
+
+    The result computes what the analysis these came from computes, from the
+    same constants, without building or reading anything."""
+    from .api.orchestrate import Analysis, ParamSpace
+
+    device = resolve_device(device)
+    configs, pipelines, providers, bases = {}, {}, {}, {}
+    for name, fields in state["configs"].items():
+        cfg = EFTConfig(**fields)
+        configs[name] = cfg
+        pipe = pipeline_from_numpy(cfg, state["tables"][name], device=device, dtype=dtype,
+                                   zeff=state["zeff"][name], quadform=quadform)
+        pipe.with_rsd = bool(state.get("with_rsd", {}).get(name, True))
+        if state.get("frozen", {}).get(name) is not None:
+            frozen_from_numpy(pipe, state["frozen"][name])
+        pipelines[name] = pipe
+        providers[name] = provider_from_numpy(cfg, state["providers"][name])
+        bases[name] = _basis(state["bases"][name])
+    likes = {}
+    for block, lstate in state["likes"].items():
+        lstate = dict(lstate, tracers={
+            t: dict(ts, **state["bases"][t]) for t, ts in lstate["tracers"].items()})
+        likes[block] = likelihood_from_numpy(
+            {t: pipelines[t] for t in lstate["tracers"]}, lstate)
+    return Analysis(
+        configs=configs, pipelines=pipelines, providers=providers, bases=bases,
+        like=next(iter(likes.values())) if len(likes) == 1 else None, likes=likes,
+        space=ParamSpace.from_config(state["params"]), dtype=dtype, device=device,
+        quadform=quadform)
 
 
 def driver_state_from_numpy(arrays) -> dict:

@@ -8,9 +8,8 @@ correction and joint masking, and the bookkeeping that groups the
 marginalized (gaussian) parameters across tracers.  The per-evaluation path —
 theory vectors, ∂P/∂b_G tables, χ² or marginalized log-posterior — runs on a
 walker batch: every parameter is a (W,) tensor, the result is (W,).
-
-Not ported yet: chained multipoles and the unbinned interpolation mode
-(``with_interp``).
+A tracer's product may be binned, chained, or unbinned and interpolated in
+k·P onto the data's k (``with_interp``, one constant matrix per tracer).
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from dataclasses import dataclass, field
 from typing import Any, Mapping
 
 from ..models.pipeline import TracerPipeline, CosmoInputs
+from ..ops.interp import spline_matrix
 from ..ops.precision import stage_precision
 from .parambasis import BirdComponent
 from .marginal import MarginalSetup, marginalized_logp
@@ -132,6 +132,8 @@ class _TracerRuntime:
     rows: np.ndarray  # flatten gather rows into the product plk
     cols: np.ndarray  # flatten gather cols
     binning_tables: dict | None
+    interp_png: np.ndarray | None = None  # (nkout, nk) matrix acting on k·P
+    interp_pg: np.ndarray | None = None
 
 
 class EFTLikelihood:
@@ -210,16 +212,16 @@ class EFTLikelihood:
                    torch.as_tensor(rt.cols, dtype=torch.long, device=self.device))
             for name, rt in self.runtimes.items()
         }
+        # the interpolation matrices, transposed, and the k grid they act on
+        dev = lambda x: torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        self._interp = {
+            name: dict(k=dev(rt.spec.pipeline.cfg.k), png=dev(rt.interp_png.T),
+                       pg=dev(rt.interp_pg.T))
+            for name, rt in self.runtimes.items() if rt.interp_png is not None
+        }
 
     # ------------------------------------------------------------------
     def _load_tracer(self, name: str, spec: TracerSpec) -> _TracerRuntime:
-        if spec.chained:
-            raise NotImplementedError(
-                f"tracer {name}: chained multipoles are not ported yet (ROADMAP A5)")
-        if not spec.with_binning:
-            raise NotImplementedError(
-                f"tracer {name}: the unbinned / interpolated data modes are not "
-                "ported yet (ROADMAP A5)")
         data = dict(spec.data)
         path = data.pop("path")
         ls = data.pop("ls")
@@ -241,20 +243,37 @@ class EFTLikelihood:
         kout = kall[lo:hi]
         kout_mask = parse_kmask(kout, ls, kmin, kmax)
 
-        binning_tables = spec.pipeline.binning_tables(kout, **spec.binning)
+        binning_tables = None
+        if spec.with_binning:
+            binning_tables = spec.pipeline.binning_tables(kout, **spec.binning)
 
         cfg = spec.pipeline.cfg
-        # the product carries cfg.no multipoles: a data multipole beyond that
-        # would otherwise index past the computed ones
-        if max(ls) // 2 >= cfg.no:
+        interp_png = interp_pg = None
+        if not spec.with_binning and spec.with_interp:
+            # PlkInterpolator inserts (0, 0) before interpolating k·P
+            # (theory.py:75-106); the PG path interpolates without the
+            # zero-insertion (likelihood.py:511-513)
+            kgrid0 = np.concatenate([[0.0], cfg.k])
+            interp_png = spline_matrix(kgrid0, kout)[:, 1:] / kout[:, None]
+            interp_pg = spline_matrix(cfg.k, kout) / kout[:, None]
+
+        # the product carries cfg.no multipoles (one fewer when chained): a
+        # data multipole beyond that would otherwise index past the computed
+        # ones (orchestrate's ls negotiation normally prevents this)
+        n_prod_l = cfg.no - (1 if spec.chained else 0)
+        if max(ls) // 2 >= n_prod_l:
             raise ValueError(
                 f"tracer {name}: data requests multipole l={max(ls)} but the "
-                f"pipeline computes only {cfg.no} output multipoles (nl={cfg.nl})"
+                f"pipeline computes only {n_prod_l} output multipoles "
+                f"(nl={cfg.nl}, chained={spec.chained}) — raise the tracer's "
+                "'ls' (or let Analysis.from_config negotiate it)"
             )
         # flatten gather indices into the product plk (likelihood.py:167-195)
         rows, cols = [], []
+        use_mask = spec.with_binning or spec.with_interp
         for ell in ls:
-            sel = np.arange(kout_mask[ell].start, kout_mask[ell].stop)
+            sel = (np.arange(kout_mask[ell].start, kout_mask[ell].stop) if use_mask
+                   else np.arange(cfg.nk))
             rows.append(np.full(sel.size, ell // 2))
             cols.append(sel)
         return _TracerRuntime(
@@ -269,6 +288,8 @@ class EFTLikelihood:
             rows=np.concatenate(rows),
             cols=np.concatenate(cols),
             binning_tables=binning_tables,
+            interp_png=interp_png,
+            interp_pg=interp_pg,
         )
 
     # ------------------------------------------------------------------
@@ -289,7 +310,13 @@ class EFTLikelihood:
         )
         return product
 
-    def _flatten(self, name: str, plk):
+    def _flatten(self, name: str, plk, part: str = "png"):
+        """Gather the data's entries of ``plk`` (W, L, nk); an interpolated
+        tracer first maps k·P onto its k with the matrix of ``part`` ("png":
+        the theory vector, "pg": the ∂P/∂b_G rows)."""
+        if name in self._interp:
+            interp = self._interp[name]
+            plk = (plk * interp["k"]) @ interp[part]
         rows, cols = self._gather[name]
         return plk[..., rows, cols]
 
@@ -312,7 +339,7 @@ class EFTLikelihood:
                 seg = self.segments[name]
                 for p in group:
                     pg_rows.setdefault(self._bg_index[p], []).append(
-                        (seg, self._flatten(name, table[p])))
+                        (seg, self._flatten(name, table[p], "pg")))
         png = torch.cat(png_parts, dim=-1)
         pg = None
         if self.marginal:

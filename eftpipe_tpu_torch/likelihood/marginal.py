@@ -9,12 +9,15 @@ eftpipe/marginal.py:31-232):
 
 Batched over walkers: ``pg`` is (W, nmarg, ndata), ``png`` (W, ndata); the
 solves and log-determinants are batched ``torch.linalg`` calls on
-(nmarg × nmarg) systems.  Prior locations/scales are floats or callables of
-the parameter dict; the string form of the JAX package is not ported yet.
+(nmarg × nmarg) systems.  Prior locations/scales are floats, callables of
+the parameter dict, or strings that evaluate to such callables (upstream's
+``eval_callable`` pattern, marginal.py:13-19), parsed against the AST
+whitelist of ``utils/safe_expr.py``.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 import numpy as np
 import torch
@@ -26,9 +29,11 @@ def _compile_prior_entry(x) -> Callable[[Mapping], Any] | float:
     if x is None:
         return 0.0
     if isinstance(x, str):
-        raise NotImplementedError(
-            "prior loc/scale given as an expression string is not ported yet "
-            "(ROADMAP A7); pass a float or a callable of the parameter dict")
+        from ..utils.safe_expr import safe_eval_expr
+
+        fn = safe_eval_expr(x)
+        argnames = inspect.getfullargspec(fn).args
+        return lambda params: fn(*(params[a] for a in argnames))
     if callable(x):
         return x
     return float(x)

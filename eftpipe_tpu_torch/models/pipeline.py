@@ -2,14 +2,11 @@
 
 The analogue of upstream ``EFTLeafKernel.calculate_power_spectrum``
 (eftpipe/theory.py:557-609): cosmology inputs → bird → IR resummation → AP →
-window (+icc) → window matrix → fiber → per-(binned) products.  All Phase-A
-tables are built once, on the host, and moved to the device in
+window (+icc) → window matrix → fiber → per-(chained, binned) products.  All
+Phase-A tables are built once, on the host, and moved to the device in
 :meth:`TracerPipeline.build`; the per-evaluation methods run on a whole
-walker batch (leading axis W).
-
-Parts of the JAX pipeline that are not ported yet (the dotted window-builder
-extension point, the template-fit fast path, chained multipoles) raise
-``NotImplementedError`` naming their ROADMAP item.
+walker batch (leading axis W).  :meth:`TracerPipeline.freeze_template` is
+the template-fit fast path: the P_lin-only loop products computed once.
 """
 
 from __future__ import annotations
@@ -29,7 +26,8 @@ from .window import (build_window_tables, window_tables_to, apply_window,
                      build_window_matrix_tables, window_matrix_tables_to, apply_window_matrix)
 from .icc import build_icc_tables
 from .fiber import build_fiber_tables, fiber_tables_to, apply_fiber
-from .transforms import build_binning_matrix, apply_binning
+from .transforms import build_binning_matrix, apply_binning, apply_chained
+from .resum import ir_filters, _xpyp
 from ..ops.precision import stage_precision
 
 
@@ -62,6 +60,7 @@ class TracerPipeline:
     device: Any = None
     dtype: Any = None
     quadform: str = "kernel"
+    frozen: dict | None = None
 
     @classmethod
     def build(
@@ -85,11 +84,9 @@ class TracerPipeline:
         quadratic forms' route, see :func:`..nonlinear.nonlinear_pscf`.
         ``window``/``window_matrix``/``icc``/``fiber`` are the keyword
         arguments of the matching host builders; the icc tables are coupled
-        into the window."""
-        if window and window.get("builder"):
-            raise NotImplementedError(
-                "TracerPipeline.build: the dotted window['builder'] extension "
-                "point belongs to the orchestration layer, not ported yet (ROADMAP A7)")
+        into the window.  ``window["builder"]``, a dotted path, names another
+        host window builder with the signature and result of
+        :func:`..window.build_window_tables` (upstream theory.py:62-72)."""
         device = resolve_device(device)
         nt = build_nonlinear_tables(cfg, device, dtype, cache_dir=cache_dir)
         bt = build_bird_tables(cfg, device, dtype)
@@ -101,8 +98,15 @@ class TracerPipeline:
         icc_tables = build_icc_tables(cfg, cache_dir=cache_dir, **icc) if icc else None
         wt = wmt = ft = None
         if window:
-            window = {k: v for k, v in window.items() if k != "builder"}
-            wt = window_tables_to(build_window_tables(
+            window = dict(window)
+            builder = build_window_tables
+            dotted = window.pop("builder", None)
+            if dotted:
+                import importlib
+
+                module_name, fn_name = dotted.rsplit(".", 1)
+                builder = getattr(importlib.import_module(module_name), fn_name)
+            wt = window_tables_to(builder(
                 cfg, cache_dir=cache_dir, icc_tables=icc_tables, **window), device, dtype)
         if window_matrix:
             wmt = window_matrix_tables_to(
@@ -113,10 +117,20 @@ class TracerPipeline:
                    with_rsd=with_rsd, zeff=zeff, device=device, dtype=dtype,
                    quadform=quadform)
 
-    def freeze_template(self, plin):
-        raise NotImplementedError(
-            "TracerPipeline.freeze_template: the template-fit fast path is not "
-            "ported yet (ROADMAP A7)")
+    def freeze_template(self, plin) -> "TracerPipeline":
+        """Template-fit fast path (upstream ``LinearPowerFile`` mode,
+        boltzmann.py:246-315): everything that depends only on P_lin — the
+        one-loop quadratic forms (through the kernels on the card) and the IR
+        filter powers — is computed ONCE here, for ``plin`` (nkin,) on
+        cfg.kin, and kept on the device with a walker axis of one;
+        :meth:`compute_bird` then runs only the f- and AP-dependent work."""
+        p = torch.as_tensor(np.asarray(plin), dtype=self.dtype, device=self.device)[None]
+        with torch.no_grad(), stage_precision("nonlinear"):
+            frozen = {"nl_out": nonlinear_pscf(self.nt, self.cfg, p, quadform=self.quadform)}
+            if self.rt is not None:
+                frozen["xpyp"] = _xpyp(self.rt, *ir_filters(self.rt, p))
+        self.frozen = frozen
+        return self
 
     def compute_bird(self, inputs: CosmoInputs, with_snapshots: bool = False,
                      stop_after: str | None = None):
@@ -128,15 +142,21 @@ class TracerPipeline:
         plin = inputs.plin
         f = inputs.f if self.with_rsd else torch.zeros_like(inputs.f)
         snaps: dict[str, BirdState] = {}
+        nw = plin.shape[0]
+        batch = lambda x: x.expand((nw,) + tuple(x.shape[1:]))
         with stage_precision("nonlinear"):
-            out = nonlinear_pscf(self.nt, cfg, plin, quadform=self.quadform)
+            if self.frozen is not None:
+                out = {k: batch(v) for k, v in self.frozen["nl_out"].items()}
+            else:
+                out = nonlinear_pscf(self.nt, cfg, plin, quadform=self.quadform)
             bird = assemble_bird(self.bt, cfg, out, plin, f)
         snaps["nonlinear"] = bird
         if stop_after == "nonlinear":
             return bird
         if self.rt is not None:
+            xpyp = batch(self.frozen["xpyp"]) if self.frozen is not None else None
             with stage_precision("IRresum"):
-                bird = resum_ps(self.rt, cfg, bird, plin)
+                bird = resum_ps(self.rt, cfg, bird, plin, xpyp=xpyp)
             snaps["IRresum"] = bird
         if stop_after == "IRresum":
             return bird
@@ -175,21 +195,20 @@ class TracerPipeline:
 
     def product_info(self, chained: bool = False, binning: dict | None = None):
         """Static (ls, kgrid, nk) of a product combination."""
-        if chained:
-            raise NotImplementedError(
-                "chained multipoles are not ported yet (ROADMAP A5)")
         cfg = self.cfg
         kret = binning["keff"] if binning is not None else cfg.k
-        ls = [2 * i for i in range(cfg.no)]
+        ls = [2 * i for i in range(cfg.no - 1 if chained else cfg.no)]
         return ls, kret, len(kret)
 
     def product(self, bird: BirdState, chained: bool = False,
                 binning: dict | None = None) -> tuple[list[int], np.ndarray, BirdState]:
-        """(ls, kgrid, birdlike) for one (binned) combination
+        """(ls, kgrid, birdlike) for one (chained, binned) combination
         (theory.py:590-604)."""
         ls, kret, _ = self.product_info(chained, binning)
         out = bird
         if binning is not None:
             with stage_precision("binning"):
                 out = apply_binning(binning["matrix_dev"], out)
+        if chained:
+            out = apply_chained(self.cfg, out)
         return ls, kret, out

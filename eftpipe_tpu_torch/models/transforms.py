@@ -1,17 +1,18 @@
-"""Linear bird transforms: k-binning (counterpart of
-``eftpipe_tpu/models/transforms.py``; the chained multipoles are not ported
-yet).
+"""Linear bird transforms: k-binning and chained multipoles (counterpart of
+``eftpipe_tpu/models/transforms.py``).
 
 Binning (upstream eftpipe/binning.py:17-162) bin-averages k²P(k) over each
 data bin with a 100·accboost-point trapezoid after cubic interpolation from
 the internal grid — exactly linear with fixed coefficients, so Phase A
 reduces it to one (nbins, nk) matrix applied to the last axis of every
-P-side tensor.
+P-side tensor.  Chained multipoles (upstream chained.py) are one constant
+(nl-1, nl) matrix on the multipole axis.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ops.interp import spline_matrix
 from .config import EFTConfig
@@ -95,3 +96,51 @@ def apply_binning(matrix, bird: BirdState) -> BirdState:
     """``matrix``: the (nbins, nk) tensor of the binning tables, on the
     bird's device and in its dtype."""
     return map_pk_fields(bird, lambda x: x @ matrix.T)
+
+
+# ---------------------------------------------------------------------------
+# chained multipoles
+# ---------------------------------------------------------------------------
+
+def chain_coeff(ell: int) -> float:
+    """A_ℓ = (2ℓ+1) L_ℓ(0) / ((2ℓ+5) L_{ℓ+2}(0)) (chained.py:13-28)."""
+    from scipy.special import legendre
+
+    return ((2 * ell + 1) * legendre(ell)(0)) / ((2 * ell + 5) * legendre(ell + 2)(0))
+
+
+def chained_matrix(nl: int) -> np.ndarray:
+    """(nl-1, nl) matrix P_ℓ − A_ℓ P_{ℓ+2} (chained.py:32-54)."""
+    if nl < 2 or nl > 4:
+        raise NotImplementedError(f"chained multipoles need 2 <= nl <= 4, got {nl}")
+    m = np.zeros((nl - 1, nl))
+    for i in range(nl - 1):
+        m[i, i] = 1.0
+        m[i, i + 1] = -chain_coeff(2 * i)
+    return m
+
+
+# (nl, device, dtype) → the chained matrix on the card: made once, since a
+# host array put on the card per call synchronises the stream
+_CHAINED: dict = {}
+
+
+def _chained_tensor(nl: int, like):
+    key = (nl, like.device, like.dtype)
+    if key not in _CHAINED:
+        _CHAINED[key] = torch.as_tensor(chained_matrix(nl), dtype=like.dtype, device=like.device)
+    return _CHAINED[key]
+
+
+def apply_chained(cfg: EFTConfig, bird: BirdState) -> BirdState:
+    m = _chained_tensor(cfg.nl, bird.p11l)
+    tensor = lambda x: torch.einsum("al,...lnx->...anx", m, x)  # (W, nl, n, nk)
+    plain = lambda x: torch.einsum("al,...lx->...ax", m, x)     # picc: (W, nl, nk)
+    return bird._replace(
+        p11l=tensor(bird.p11l),
+        ploopl=tensor(bird.ploopl),
+        pctl=tensor(bird.pctl),
+        pct_nnlo_l=tensor(bird.pct_nnlo_l),
+        pstl=tensor(bird.pstl),
+        picc=plain(bird.picc),
+    )

@@ -29,6 +29,11 @@ _MODULES = [
     "eftpipe_tpu_torch.parallel", "eftpipe_tpu_torch.parallel.diagnostics",
     "eftpipe_tpu_torch.parallel.sampler", "eftpipe_tpu_torch.parallel.hmc",
     "eftpipe_tpu_torch.parallel.mcmc",
+    "eftpipe_tpu_torch.utils.dicttools", "eftpipe_tpu_torch.utils.safe_expr",
+    "eftpipe_tpu_torch.api.products", "eftpipe_tpu_torch.api.model",
+    "eftpipe_tpu_torch.api.orchestrate", "eftpipe_tpu_torch.analysis",
+    "eftpipe_tpu_torch.analysis.chains", "eftpipe_tpu_torch.analysis.multipole",
+    "eftpipe_tpu_torch.analysis.bestfit", "eftpipe_tpu_torch.cli",
 ]
 
 
@@ -108,23 +113,24 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
         build_flagship(tmp_path)  # default device is the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TracerPipeline.build(EFTConfig(nfft_loop=32, nkin=60), device="cuda")
+    from eftpipe_tpu_torch.api.orchestrate import Analysis
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Analysis.from_config({"theory": {"tracers": {}}})  # default device is the card
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    (dict(window=dict(builder="pkg.fn")), "A7"),
-    (dict(cross_prefix=["LRGxELG"]), "A5"),
+    (dict(boltzmann={"name": "emulator"}), "A7"),
+    (dict(boltzmann={"name": "solver"}), "A8"),
 ])
 def test_unported_options_raise_not_implemented(tmp_path, kwargs, match):
     """What the port still leaves out raises, naming its ROADMAP item: the
-    dotted window-builder extension point and cross spectra (the survey
-    window and the solver emulator, once listed here, are ported)."""
-    from eftpipe_tpu_torch.likelihood.parambasis import WestCoastBasis
+    trained-transfer emulator provider and the Einstein-Boltzmann solver
+    provider (the survey window, the solver emulator, the dotted
+    window-builder extension point and cross spectra, once listed here, are
+    ported)."""
+    from eftpipe_tpu_torch.api.orchestrate import build_provider
     from eftpipe_tpu_torch.models.config import EFTConfig
-    from eftpipe_tpu_torch.models.pipeline import TracerPipeline
 
     with pytest.raises(NotImplementedError, match=match):
-        if "cross_prefix" in kwargs:
-            WestCoastBasis(**kwargs)
-        else:
-            TracerPipeline.build(EFTConfig(nfft_loop=32, nkin=60), device="cpu",
-                                 cache_dir=tmp_path, **kwargs)
+        build_provider(kwargs["boltzmann"], EFTConfig(nfft_loop=32, nkin=60), 0.7)

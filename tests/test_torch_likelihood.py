@@ -91,10 +91,14 @@ def test_westcoast_reduce_and_gaussian_table(nl, no, with_nnlo):
 
 
 def test_unported_bases_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpb.WestCoastBasis(prefix="a_", cross_prefix=["a_", "b_"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpb.reduce_plk(TConfig(counterform="eastcoast"), None, t(np.ones(2)), [0.0] * 7)
+    """Cross spectra and the east-coast basis are ported (parity in
+    ``test_torch_orchestrate.py``); what the JAX package itself refuses —
+    an east-coast cross spectrum — the port refuses too."""
+    assert tpb.WestCoastBasis(prefix="a_", cross_prefix=["a_", "b_"]).is_cross()
+    with pytest.raises(NotImplementedError, match="cross"):
+        jpb.EastCoastBasis(prefix="a_", cross_prefix=["a_", "b_"])
+    with pytest.raises(NotImplementedError, match="cross"):
+        tpb.EastCoastBasis(prefix="a_", cross_prefix=["a_", "b_"])
 
 
 @pytest.mark.parametrize("jeffreys", [False, True])
@@ -169,8 +173,14 @@ def test_marginal_setup_and_prior_forms():
     assert not inf.mu_sigma_inv({}, like)[1].any()
     with pytest.raises(ValueError):
         tmarg.MarginalSetup.from_config({"nope": {}}, ordering)
-    with pytest.raises(NotImplementedError):
-        tmarg.MarginalSetup.from_config({"A_b3": {"loc": "lambda A_b1: A_b1"}}, ordering)
+    # an expression string is a callable of the parameters, like the JAX one
+    expr = {"A_b3": {"loc": "lambda A_b1: 2.0 * A_b1", "scale": "lambda A_b1: 1.0 + A_b1**2"}}
+    mu, sig = tmarg.MarginalSetup.from_config(expr, ordering).mu_sigma_inv(
+        {"A_b1": t(np.arange(W))}, like)
+    jmu, jsig = jax.vmap(lambda b: jmarg.MarginalSetup.from_config(expr, ordering).mu_sigma_inv(
+        {"A_b1": b}))(jnp.asarray(np.arange(W, dtype=float)))
+    close(mu.numpy(), jmu)
+    close(sig.numpy(), jsig)
 
 
 def test_host_helpers_match_jax(tmp_path):
@@ -307,13 +317,18 @@ def test_likelihood_from_numpy_carries_jax_state(two_tracer):
 
 
 def test_likelihood_rejects_unported_modes(two_tracer):
+    """Chained and unbinned data modes are ported (parity in
+    ``test_torch_orchestrate.py``); what stays refused is a data multipole
+    the pipeline does not compute — also when chaining uses one up."""
     work, _, tspecs, _, _ = two_tracer
     import dataclasses
 
-    for change in (dict(chained=True), dict(with_binning=False)):
-        bad = {"A": dataclasses.replace(tspecs["A"], **change)}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlike.EFTLikelihood(tracers=bad, cov=work / "cov.txt")
+    for change in (dict(with_binning=False), dict(with_binning=False, with_interp=True)):
+        unbinned = {"A": dataclasses.replace(tspecs["A"], **change), "B": tspecs["B"]}
+        assert tlike.EFTLikelihood(tracers=unbinned, cov=work / "cov.txt").ndata > 0
+    chained = {"A": dataclasses.replace(tspecs["A"], chained=True)}  # nl=3, l=4 in its data
+    with pytest.raises(ValueError, match="chained=True"):
+        tlike.EFTLikelihood(tracers=chained, cov=work / "cov.txt")
     too_many = {"B": dataclasses.replace(tspecs["B"], data=dict(tspecs["A"].data))}
     with pytest.raises(ValueError, match="multipole"):
         tlike.EFTLikelihood(tracers=too_many, cov=work / "cov.txt")

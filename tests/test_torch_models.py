@@ -212,22 +212,29 @@ def test_fold_ab_reference_matches_folded(both):
 @pytest.mark.parametrize("option", ["window", "window_matrix", "icc", "fiber"])
 def test_unported_stages_raise(option):
     """Every survey-geometry stage is ported: each reaches its host builder
-    (which refuses an unknown keyword); only the dotted window-builder
-    extension point still raises, naming its ROADMAP item."""
+    (which refuses an unknown keyword), the dotted window-builder extension
+    point too: it resolves the builder it names, which gets the keywords."""
     with pytest.raises(TypeError, match="unexpected keyword argument 'x'"):
         tpipe.TracerPipeline.build(TConfig(**NARROW), device="cpu", **{option: dict(x=1)})
     if option == "window":
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        with pytest.raises(TypeError, match="unexpected keyword argument 'x'"):
+            tpipe.TracerPipeline.build(
+                TConfig(**NARROW), device="cpu",
+                window=dict(builder="eftpipe_tpu_torch.models.window.build_window_tables", x=1))
+        with pytest.raises(ModuleNotFoundError):
             tpipe.TracerPipeline.build(TConfig(**NARROW), device="cpu",
-                                       window=dict(builder="pkg.fn"))
+                                       window=dict(builder="no_such_pkg.fn"))
 
 
 def test_chained_and_premix_raise(both):
-    _, tp, x = both
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.product_info(chained=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.freeze_template(x["plin"][0])
+    """Chained products and the frozen template are ported (their parity
+    tests are in ``test_torch_orchestrate.py``); the low-rank premixed CF
+    loop still raises, naming its ROADMAP item."""
+    jp, tp, x = both
+    assert tp.product_info(chained=True)[0] == jp.product_info(chained=True)[0] \
+        == [2 * i for i in range(tp.cfg.no - 1)]
+    frozen = dataclasses.replace(tp).freeze_template(x["plin"][0])
+    assert frozen.frozen["nl_out"]["p22"].shape[0] == 1 and tp.frozen is None
     with pytest.raises(NotImplementedError, match="low-rank"):
         tbird.assemble_bird(tp.bt, tp.cfg, {"cloop_grp": None}, torch.as_tensor(x["plin"]),
                             torch.as_tensor(x["f"]))

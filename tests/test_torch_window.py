@@ -216,6 +216,8 @@ def test_window_options_and_errors(win_source):
     got = tw.apply_window(tw.window_tables_to(tab, "cpu", torch.float64), cfg, tbird)
     np.testing.assert_array_equal(got.pstl.numpy(), tbird.pstl.numpy())
     assert got.p11l.shape == (W, 1, 3, cfg.nk)
-    # the dotted builder extension point belongs to the orchestration layer
-    with pytest.raises(NotImplementedError, match="A7"):
-        TracerPipeline.build(cfg, window=dict(builder="pkg.fn"), device="cpu")
+    # the dotted builder extension point resolves the builder it names
+    dotted = TracerPipeline.build(
+        cfg, window=dict(kw, builder="eftpipe_tpu_torch.models.window.build_window_tables"),
+        device="cpu")
+    np.testing.assert_array_equal(dotted.wt["wmat"].numpy(), tab["wmat"])
