@@ -48,7 +48,24 @@ Phases, each printing one JSON line:
    (``MCMCDriver(sampler_kind="hmc")``, 64 chains, 10 warmup and 10
    sampling steps).  Each sampler path counts its ``logp`` calls and its
    kernel launches, which must be 4 per call.
-8. ``analysis`` — the config-driven analysis (``Analysis.from_config``, its
+8. ``lowrank`` — the JAX package's float32 route on the default flagship:
+   ``build_flagship(quadform="lowrank")`` (truncated-eigenbasis factors at
+   the 1e-5 cut, the CF loop premixed), float32.  Two errors on the 64
+   seeded points, kept apart: (a) the port's arithmetic, float32 against
+   float64 on the same factors (|dlogp| < 0.02 and multipoles < 1e-4, or
+   the script fails); (b) the truncation, float64 low-rank against float64
+   dense (reported, not gated: the reference's own approximation).  Every
+   model of the two comparisons is built with the Gauss-Legendre µ
+   quadrature in both dtypes (``ap_quadrature="gauss_legendre"``), so that
+   (a) is rounding alone, in ``logp`` and in the multipoles; the multipoles
+   come from each model's own tracer pipelines on float64 cosmology
+   inputs.  Also ``evals_per_s`` at W=1024
+   beside the dense kernel route's (in turns), the ranks of the factors and
+   the seconds to build them, peak memory, host syncs per ``logp``, and the
+   ``qf_real`` launches of the route (none: it is two matmuls).  Then the
+   options table: tol in {1e-8, 1e-5, 1e-4} × premix on/off, each with
+   error (b), its ranks and its ``nonlinear`` stage time at W=1024.
+9. ``analysis`` — the config-driven analysis (``Analysis.from_config``, its
    config built as a dict): LRG (z=0.70, l=0,2,4), ELG (z=0.845, l=0,2,
    chained) and their cross X, each with IR resummation, AP and a survey
    window (``window_nmax=2048``), solver-emulator cosmology, west-coast
@@ -62,8 +79,13 @@ Phases, each printing one JSON line:
    ``init="laplace"``, 10 steps to a checkpoint, resumed to 15),
    ``ChainProducts`` + ``BestfitModel`` (finite chi2); then a template-fit
    config (``fixed_template``, LRG) whose ``qf_real`` launches happen at
-   build (``freeze_template``) and never in ``logp``.
-9. ``kernels`` line (launches by path), the card's ``nvidia-smi`` line, and
+   build (``freeze_template``) and never in ``logp``; the same three-tracer
+   analysis in float64 through the float64 kernels (the CLI's
+   ``--dtype float64``), its ``logp`` timed at W=1024; and a float32 LRG
+   analysis on the ``emulator`` provider (a transfer-function MLP file
+   written here with NumPy in the JAX package's ``TransferEmulator.save``
+   layout, seeded weights) against its float64 plain path (|dlogp| < 0.02).
+10. ``kernels`` line (launches by path), the card's ``nvidia-smi`` line, and
    the final ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises: the exit code is then non-zero and no final line is
@@ -88,14 +110,16 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from eftpipe_tpu_torch.analysis import BestfitModel, ChainProducts
-from eftpipe_tpu_torch.api.flagship import build_flagship, synthetic_mask_file, FIDUCIAL
+from eftpipe_tpu_torch.api.flagship import build_flagship, synthetic_mask_file, FIDUCIAL, TRACERS
 from eftpipe_tpu_torch.api.orchestrate import Analysis
 from eftpipe_tpu_torch.boltzmann.eh98 import eh98_pk
 from eftpipe_tpu_torch.likelihood.covariance import GaussianCovariance, Multipole
-from eftpipe_tpu_torch.boltzmann.emulator import SolverEmulatorProvider
+from eftpipe_tpu_torch.boltzmann.eh98 import eh98_transfer
+from eftpipe_tpu_torch.boltzmann.emulator import SolverEmulatorProvider, TransferEmulator
 from eftpipe_tpu_torch.likelihood.parambasis import WestCoastBasis
 from eftpipe_tpu_torch.models.ap import lcdm_da, lcdm_hubble
 from eftpipe_tpu_torch.models.config import EFTConfig
+from eftpipe_tpu_torch.models.nonlinear import LOWRANK_TOL, lowrank_tables_numpy
 from eftpipe_tpu_torch.models.pipeline import CosmoInputs, TracerPipeline
 from eftpipe_tpu_torch.ops import _build, quadform as qf
 from eftpipe_tpu_torch.parallel.mcmc import MCMCDriver
@@ -105,14 +129,16 @@ WORKDIR = os.path.join(ROOT, "chip_smoke_workdir")
 GOLDENS = os.path.join(ROOT, "tests", "goldens")
 
 # published peaks of one H100 SXM (data sheet, dense): device-memory rate, the
-# FMA rates outside the tensor cores (the float64 kernels) and the TF32
-# tensor-core rate, of which the float32 kernels' 3xTF32 split (three TF32
-# products per float32-grade product) gets a third
+# FMA rates outside the tensor cores (a reference only: the float64 kernel
+# runs there), the float64 tensor-core rate (the card's peak for float64) and
+# the TF32 tensor-core rate, of which the float32 kernels' 3xTF32 split (three
+# TF32 products per float32-grade product) gets a third
 HBM_BYTES_PER_S = 3.35e12
 FMA_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+FP64_TC_FLOPS = 67e12
 TF32_FLOPS = 495e12
 PEAK_NAME = {torch.float32: "3xTF32: three TF32 tensor-core passes at 495 TFLOP/s",
-             torch.float64: "34 TFLOP/s float64 (non-tensor)"}
+             torch.float64: "67 TFLOP/s float64 on the tensor cores"}
 LOGP_ABS_BUDGET = 0.02
 MULTIPOLE_REL_BUDGET = 1e-4  # tests/test_accuracy_budget.py
 CHUNK_TRIALS = (256, 512)  # walker chunks tried, beside the whole batch
@@ -124,6 +150,9 @@ QF_PER_LOGP = 4  # qf_real launches of one logp call: two per tracer
 # pipelines (LRG, ELG, X); a frozen template launches none per logp
 QF_PER_ANALYSIS_LOGP = 6
 ANALYSIS_KOUT = np.round(np.arange(0.01, 0.2049, 0.005), 6)
+LOWRANK_OPTIONS = (1e-8, 1e-5, 1e-4)  # the options table's cuts (1e-5: the default)
+# counterterms of the multipole comparisons, at the scales of their priors
+COUNTERTERMS = dict(b3=0.5, cct=1.0, cr1=2.0, cr2=1.0, ce0=1.0, cequad=0.5)
 
 REPLACES = {
     "qf_real": "eftpipe_tpu/ops/pallas_kernels.py:313",
@@ -181,19 +210,20 @@ def event_ms(fn, inputs, warmup: int = 2) -> float:
 
 def bound(kernel: str, dtype, nw: int, n: int, s: int, bl: int):
     """Least time for the work: each input read once, each output written
-    once, against the operations at the card's peak for the kernel's route
+    once, against the operations at the card's peak for their type
     (float32: three TF32 tensor-core products per product, float64: the
-    FMA pipe).  Only the symmetric part of M enters the forms, so the
-    operations counted are those of its lower triangle: N(N+1)/2
+    float64 tensor cores).  Only the symmetric part of M enters the forms,
+    so the operations counted are those of its lower triangle: N(N+1)/2
     multiply-adds per vector and output, plus the reduction against z.
-    Also returns the float32-FMA bound of the same operations."""
+    Also returns the bound of the same operations at the FMA rate outside
+    the tensor cores (float32: 67, float64: 34 TFLOP/s)."""
     sz = torch.empty((), dtype=dtype).element_size()
     nz = 1 if kernel == "qf_real" else 2
     nbytes = sz * (bl * n * n + nz * nw * n * s + nz * nw * bl * s)
     flops = nz * (1.0 * nw * bl * n * (n + 1) * s + 2.0 * nz * nw * bl * n * s)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_fma = flops / FMA_FLOPS[dtype] * 1e3
-    t_ops = 3.0 * flops / TF32_FLOPS * 1e3 if dtype == torch.float32 else t_fma
+    t_ops = (3.0 * flops / TF32_FLOPS if dtype == torch.float32 else flops / FP64_TC_FLOPS) * 1e3
     return (max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), flops, nbytes,
             t_fma)
 
@@ -645,6 +675,177 @@ def sampling_phase(model, ref_model, lines: list) -> dict:
     return by_path
 
 
+def multipole_rel_err(got: dict, ref: dict) -> float:
+    """Worst |got − ref| / max(|ref|, 1e-3·max|ref|) over tracers, the metric
+    of tests/test_accuracy_budget.py."""
+    worst = 0.0
+    for name, r in ref.items():
+        r = r.double()
+        scale = torch.clamp(r.abs(), min=1e-3 * float(r.abs().max()))
+        worst = max(worst, float(((got[name].double() - r).abs() / scale).max()))
+    return worst
+
+
+def model_pipelines(model) -> dict:
+    """A flagship model's tracer pipelines, each with the binning matrix of
+    its data k grid."""
+    return {n: (spec.pipeline, model.like.runtimes[n].binning_tables)
+            for n, spec in model.like.tracers.items()}
+
+
+def pipeline_multipoles(pipes: dict, inputs: dict, params: dict) -> dict:
+    """(W, nl, nk) binned multipoles of each tracer: the bird after the last
+    stage contracted with the walkers' biases and ``COUNTERTERMS``."""
+    out = {}
+    for name, (pipe, binning) in pipes.items():
+        _, _, prod = pipe.product(pipe.compute_bird(inputs[name]), binning=binning)
+        out[name] = WestCoastBasis(prefix=f"{name}_").reduce_plk(pipe.cfg, prod, params).sum()
+    return out
+
+
+def lowrank_ranks(factors: dict) -> dict:
+    """Kept eigenpairs R of each factor set (and the padded rows of Q)."""
+    return {key: dict(R=qf.lowrank_rank(factors["s" + key]), rows=int(factors["q" + key].shape[0]))
+            for key in ("22", "cf", "cfg")}
+
+
+def lowrank_phase(model, ref_model, lines: list) -> dict:
+    """The JAX package's float32 route on the default flagship (see the
+    module docstring, phase 8).  Returns the route's launches by shape (none
+    expected)."""
+    f32, f64, dev = torch.float32, torch.float64, torch.device("cuda")
+    workdir = os.path.join(WORKDIR, "main_path")   # the main path's data and caches
+    cfgs = {name: spec.pipeline.cfg for name, spec in model.like.tracers.items()}
+    factor_s, ranks = {}, {}
+    for tol in LOWRANK_OPTIONS:                    # the factors alone, cold, per cut
+        factor_s[tol], ranks[tol] = 0.0, {}
+        for name, cfg in cfgs.items():
+            t0 = time.perf_counter()
+            factors = lowrank_tables_numpy(cfg, tol)
+            factor_s[tol] += time.perf_counter() - t0
+            ranks[tol][name] = lowrank_ranks(factors)
+    # every model of the error comparisons takes the same µ quadrature (16
+    # Gauss-Legendre nodes, the float32 default; float64 would take the
+    # 200-point trapezoid), so that two dtypes differ by rounding alone
+    gl = "gauss_legendre"
+    t0 = time.perf_counter()
+    lr32 = build_flagship(workdir, dtype=f32, quadform="lowrank", ap_quadrature=gl)
+    build_s = time.perf_counter() - t0
+    lr64 = build_flagship(workdir, dtype=f64, quadform="lowrank", ap_quadrature=gl)
+    dense64 = build_flagship(workdir, dtype=f64, quadform="plain", ap_quadrature=gl)
+    thetas = accuracy_batch(model.theta0)
+    t64 = torch.as_tensor(thetas, dtype=f64, device=dev)
+    rng = np.random.default_rng(13)
+    nb, n_timed = 1024, 3
+    batches = [torch.as_tensor(
+        model.theta0[None, :] * (1.0 + 1e-3 * rng.standard_normal((nb, model.theta0.size))),
+        dtype=f32, device=dev) for _ in range(n_timed + 1)]
+
+    # multipoles: float64 cosmology inputs (cast for float32), the walkers'
+    # biases and fixed counterterms, through the models' own pipelines
+    inputs64, params64 = ref_model.cosmo_inputs(t64)
+    params64 = dict(params64, **{f"{n}_{k}": torch.full((t64.shape[0],), v, dtype=f64, device=dev)
+                                 for n in TRACERS for k, v in COUNTERTERMS.items()})
+    inputs32 = {n: CosmoInputs(*(x.to(f32) for x in ci)) for n, ci in inputs64.items()}
+    params32 = {k: v.to(f32) for k, v in params64.items()}
+    with torch.no_grad():
+        lp_dense64 = dense64.logp(t64).cpu().numpy()
+        lp_lr64 = lr64.logp(t64).cpu().numpy()
+        lr32.logp(batches[-1])                                  # warm-up
+        qf.reset_launch_counts()
+        lp_lr32 = lr32.logp(thetas)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = [lr32.logp(b) for b in batches[:n_timed]]
+        torch.cuda.synchronize()
+        batch_s = (time.perf_counter() - t0) / n_timed
+        launches = dict(qf.LAUNCHES)
+        by_shape = dict(qf.LAUNCHES_BY_SHAPE)
+        # the two routes in turns, uncounted: dense, low-rank, low-rank, dense
+        turns = [("dense", model), ("lowrank", lr32), ("lowrank", lr32), ("dense", model)]
+        turn_ms = [(route, host_ms_over(m.logp, batches)) for route, m in turns]
+        syncs = sync_sites(lambda: lr32.logp(batches[0]))
+        torch.cuda.reset_peak_memory_stats()
+        lr32.logp(batches[0])
+        peak = torch.cuda.max_memory_allocated()
+        mp = {key: pipeline_multipoles(model_pipelines(m), inputs32 if key == "lr32" else inputs64,
+                                       params32 if key == "lr32" else params64)
+              for key, m in (("lr32", lr32), ("lr64", lr64), ("dense64", dense64))}
+        trace = profile_batch(lambda: lr32.logp(batches[0]), batch_s)
+
+        # the options table: error (b) of each cut and CF form, its ranks, its
+        # nonlinear stage at W=1024 (float32, cosmology excluded)
+        inputs_w, _ = model.cosmo_inputs(batches[0])
+
+        def nonlinear_ms(m):
+            return host_ms(lambda: [s.pipeline.compute_bird(inputs_w[n], stop_after="nonlinear")
+                                    for n, s in m.like.tracers.items()])
+        dense_nl_ms = nonlinear_ms(model)
+        options = []
+        for tol in LOWRANK_OPTIONS:
+            m64, m32 = (lr64, lr32) if tol == LOWRANK_TOL else (
+                build_flagship(workdir, dtype=dt, quadform="lowrank", lowrank_tol=tol,
+                               ap_quadrature=gl) for dt in (f64, f32))
+            pipelines = [s.pipeline for m in (m64, m32) for s in m.like.tracers.values()]
+            for premix in (True, False):
+                for p in pipelines:
+                    p.cf_premix = premix
+                lp = m64.logp(t64).cpu().numpy()
+                options.append(dict(
+                    tol=tol, cf_premix=premix,
+                    R={n: dict(p22=r["22"]["R"], cf=r["cfg" if premix else "cf"]["R"])
+                       for n, r in ranks[tol].items()},
+                    max_abs_dlogp_vs_dense64=float(np.abs(lp - lp_dense64).max()),
+                    multipole_rel_err_vs_dense64=multipole_rel_err(
+                        pipeline_multipoles(model_pipelines(m64), inputs64, params64),
+                        mp["dense64"]),
+                    nonlinear_ms_w1024=nonlinear_ms(m32)))
+            for p in pipelines:
+                p.cf_premix = True
+
+    lp_np = lp_lr32.double().cpu().numpy()
+    err_a = dict(max_abs_dlogp=float(np.abs(lp_np - lp_lr64).max()),
+                 multipole_max_rel_err=multipole_rel_err(mp["lr32"], mp["lr64"]))
+    err_b = dict(max_abs_dlogp=float(np.abs(lp_lr64 - lp_dense64).max()),
+                 multipole_max_rel_err=multipole_rel_err(mp["lr64"], mp["dense64"]))
+    finite = bool(np.isfinite(lp_np).all() and all(torch.isfinite(x).all() for x in timed))
+    ms = {route: [t for r, t in turn_ms if r == route] for route in ("dense", "lowrank")}
+    line = emit(
+        "lowrank", model="default flagship, quadform=lowrank, tol=1e-5, cf_premix on",
+        dtype="float32", n_points=int(lp_np.size), all_finite=finite,
+        error_a_arithmetic=dict(err_a, reference="float64 low-rank, same factors",
+                                budget=dict(dlogp=LOGP_ABS_BUDGET,
+                                            multipoles=MULTIPOLE_REL_BUDGET)),
+        error_b_truncation=dict(err_b, reference="float64 dense (plain) path", gated=False),
+        ap_quadrature="16 Gauss-Legendre nodes in both dtypes",
+        logp_range=[float(lp_dense64.min()), float(lp_dense64.max())],
+        ranks=ranks[LOWRANK_TOL], factor_build_seconds=factor_s[LOWRANK_TOL],
+        phase_a_seconds=build_s, batch=nb, batch_seconds=batch_s, evals_per_s=nb / batch_s,
+        turns_ms=turn_ms, lowrank_evals_per_s=[nb / t * 1e3 for t in ms["lowrank"]],
+        dense_kernel_evals_per_s=[nb / t * 1e3 for t in ms["dense"]],
+        nonlinear_ms_w1024=dict(dense_kernel=dense_nl_ms),
+        peak_memory_bytes=peak, host_syncs_per_logp=len(syncs), sync_sites=sorted(set(syncs)),
+        launches=launches, expected_qf_real=0,
+        device_busy_ms=trace.get("device_busy_ms"),
+        device_idle_share=trace.get("device_idle_share"), top=trace.get("top"),
+        options=options, options_factor_build_seconds=factor_s,
+        options_ranks=ranks)
+    lines.append(line)
+    checks = {
+        "finite logp": finite,
+        f"(a) |dlogp| {err_a['max_abs_dlogp']} < {LOGP_ABS_BUDGET}":
+            err_a["max_abs_dlogp"] < LOGP_ABS_BUDGET,
+        f"(a) multipoles {err_a['multipole_max_rel_err']} < {MULTIPOLE_REL_BUDGET}":
+            err_a["multipole_max_rel_err"] < MULTIPOLE_REL_BUDGET,
+        f"launches {launches} (the route launches no kernel)":
+            launches["qf_real"] == 0 and launches["cf_half"] == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: lowrank: failed {failed}")
+    return by_shape
+
+
 def stage_files(workdir: str) -> dict:
     """Inputs of the stage pipelines: the LRG NGC window multipoles of the
     committed golden, and seeded synthetic integral-constraint tables and a
@@ -740,8 +941,7 @@ def stages_check(nw: int, lines: list) -> None:
         plk64 = basis.reduce_plk(cfg, b64, bias64).sum()
         if not bool(torch.isfinite(plk32).all()):
             raise SystemExit(f"chip_smoke: stages {label}: non-finite multipoles")
-        scale = torch.clamp(plk64.abs(), min=1e-3 * float(plk64.abs().max()))
-        worst = float(((plk32 - plk64).abs() / scale).max())
+        worst = multipole_rel_err({"LRG": plk32}, {"LRG": plk64})
         # per field of the bird, each against its own largest entry (reported)
         field_rel = {f: float((getattr(b32, f).double() - getattr(b64, f)).abs().max()
                               / getattr(b64, f).abs().max())
@@ -881,9 +1081,84 @@ def template_check(workdir: str) -> dict:
                 all_finite=bool(torch.isfinite(lp).all()))
 
 
+def write_transfer_emulator(path: str, seed: int = 0, width: int = 16, depth: int = 2) -> str:
+    """An ``emulator`` provider's file, written with NumPy in the JAX
+    package's ``TransferEmulator.save`` layout from seeded weights (no
+    training): log T(k) is the EH98 transfer at the box's centre plus a
+    small tanh MLP whose last layer is smooth in log k."""
+    rng = np.random.default_rng(seed)
+    k = np.logspace(-5.5, 0.5, 160)                            # 1/Mpc
+    lo, hi = np.array([0.020, 0.09, 0.60, 0.90]), np.array([0.024, 0.15, 0.76, 1.02])
+    x_mean, x_std = 0.5 * (lo + hi), (hi - lo) / np.sqrt(12.0)
+    xm = torch.as_tensor(x_mean)
+    t_mid = eh98_transfer(torch.as_tensor(k), xm[0], xm[0] + xm[1], xm[2])[0]
+    u = (np.log(k) - np.log(k[0])) / (np.log(k[-1]) - np.log(k[0]))
+    smooth = np.stack([np.cos(np.pi * j * u) for j in range(4)])
+    sizes = [4] + [width] * depth
+    params = [{"w": rng.standard_normal((a, b)) / np.sqrt(a), "b": 0.1 * rng.standard_normal(b)}
+              for a, b in zip(sizes[:-1], sizes[1:])]
+    params.append({"w": rng.standard_normal((width, 4)) / np.sqrt(width) @ smooth,
+                   "b": np.zeros(k.size)})
+    TransferEmulator(params=params, kgrid=k, x_mean=x_mean, x_std=x_std,
+                     y_mean=np.log(t_mid.numpy()), y_std=np.full(k.size, 0.05)).save(path)
+    return path
+
+
+def emulator_check(workdir: str) -> dict:
+    """A float32 LRG analysis (IR, AP, window at nmax 2048, kernels) on the
+    ``emulator`` provider against its float64 plain path on the 64 seeded
+    points, on binned mock data of the float64 path at the fiducial point."""
+    om_fid = (FIDUCIAL["omega_b"] + FIDUCIAL["omega_cdm"]) / FIDUCIAL["h"] ** 2
+    emu = write_transfer_emulator(os.path.join(workdir, "transfer_emulator.npz"))
+    info = {"theory": {"cache_dir": os.path.join(workdir, "cache"), "tracers": {"LRG": {
+        "z": 0.70, "nd": 5e-5, "ls": [0, 2, 4], "with_IRresum": True,
+        "with_APeffect": {"Om_AP": om_fid, "rdrag_AP": 147.66, "h_AP": FIDUCIAL["h"]},
+        "with_window": {"window_configspace_file": os.path.join(workdir, "mask_LRG.txt"),
+                        "Nmax": 2048},
+        "boltzmann": {"name": "emulator", "path": emu, "om_fid": om_fid}}}},
+        "params": {"omega_b": FIDUCIAL["omega_b"], "ns": FIDUCIAL["ns"],
+                   "omega_cdm": {"prior": {"min": 0.09, "max": 0.15}, "ref": FIDUCIAL["omega_cdm"]},
+                   "h": {"prior": {"min": 0.60, "max": 0.76}, "ref": FIDUCIAL["h"]},
+                   "ln10As": {"prior": {"min": 2.5, "max": 3.5}, "ref": FIDUCIAL["ln10As"]},
+                   "LRG_b1": {"prior": {"min": 0.5, "max": 4.0}, "ref": 2.2},
+                   "LRG_b2": 0.8, "LRG_b4": 0.8}}
+    with torch.no_grad():
+        th = Analysis.from_config(info, dtype=torch.float64, device="cuda", quadform="plain")
+        ls, _, plk = th.nonlinear_Plk_grid("LRG", th.space.to_dict(th.space.theta0()),
+                                           binned=True, kout=ANALYSIS_KOUT)
+    plk = plk.double().cpu().numpy()
+    np.savetxt(os.path.join(workdir, "data_emu.txt"),
+               np.column_stack([ANALYSIS_KOUT] + list(plk)), header="k P0 P2 P4")
+    kedges = np.concatenate([ANALYSIS_KOUT - 0.0025, [ANALYSIS_KOUT[-1] + 0.0025]])
+    cov = GaussianCovariance(kedges, volume=4.0)(
+        ls, ls, "aa->aaaa", Multipole(p0=plk[0] + 2e4, p2=plk[1], p4=plk[2]))
+    np.savetxt(os.path.join(workdir, "cov_emu.txt"), cov)
+    info["likelihood"] = {"tracers": ["LRG"], "cov": os.path.join(workdir, "cov_emu.txt"),
+                          "data": {"LRG": {"path": os.path.join(workdir, "data_emu.txt"),
+                                           "ls": [0, 2, 4], "kmin": 0.01, "kmax": 0.2}},
+                          "marg": {"LRG_": {k: {"scale": 2.0} for k in ("b3", "cct", "ce0")}}}
+    an = Analysis.from_config(info, dtype=torch.float32, device="cuda")
+    ref = Analysis.from_config(info, dtype=torch.float64, device="cuda", quadform="plain")
+    thetas = accuracy_batch(an.space.theta0())
+    with torch.no_grad():
+        lp_ref = ref.logp(thetas).cpu().numpy()
+        an.logp(thetas)                                          # warm-up
+        qf.reset_launch_counts()
+        lp = an.logp(thetas).double().cpu().numpy()
+        torch.cuda.synchronize()
+        launches = dict(qf.LAUNCHES)
+        by_shape = dict(qf.LAUNCHES_BY_SHAPE)
+    return dict(provider=type(an.providers["LRG"]).__name__, n_points=int(lp.size),
+                all_finite=bool(np.isfinite(lp).all() and np.isfinite(lp_ref).all()),
+                max_abs_dlogp=float(np.abs(lp - lp_ref).max()),
+                logp_range=[float(lp_ref.min()), float(lp_ref.max())],
+                qf_real_launches=launches["qf_real"]), by_shape
+
+
 def analysis_phase(lines: list) -> dict:
-    """The config-driven analysis path; returns its launches by shape (the
-    64-point check and the timed batches)."""
+    """The config-driven analysis path; returns the launches by shape of its
+    paths: the float32 analysis (the 64-point check and the timed batches),
+    the float64 one (its timed batches) and the emulator-provider one."""
     f32, f64 = torch.float32, torch.float64
     workdir = os.path.join(WORKDIR, "analysis")
     os.makedirs(workdir, exist_ok=True)
@@ -958,6 +1233,26 @@ def analysis_phase(lines: list) -> dict:
         best = BestfitModel.from_chains(an, chains)
         chi2 = best.chi2()
     tpl = template_check(workdir)
+
+    # the same analysis in float64 through the float64 kernels (the CLI's
+    # --dtype float64): logp at W=1024, after a warm-up
+    an64 = Analysis.from_config(info, dtype=f64, device="cuda")
+    batches64 = [b.to(f64) for b in batches]
+    with torch.no_grad():
+        an64.logp(batches64[-1])
+        qf.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed64 = [an64.logp(b) for b in batches64[:2]]
+        torch.cuda.synchronize()
+        batch64_s = (time.perf_counter() - t0) / 2
+        launches64 = dict(qf.LAUNCHES)
+        by_shape64 = dict(qf.LAUNCHES_BY_SHAPE)
+    float64 = dict(batch=nb, logp_ms=batch64_s * 1e3, evals_per_s=nb / batch64_s,
+                   all_finite=bool(all(torch.isfinite(x).all() for x in timed64)),
+                   qf_real_launches=launches64["qf_real"])
+    del an64
+    emulator, by_shape_emu = emulator_check(workdir)
     line = emit(
         "analysis", config="LRG(l=0,2,4) + ELG(l=0,2 chained) + X=LRGxELG, IR, AP, window "
         "nmax=2048, solver_emulator, westcoast, Jeffreys, binned; nfft_loop=256, nkin=200",
@@ -983,7 +1278,8 @@ def analysis_phase(lines: list) -> dict:
                       derived_calls=derived_calls, qf_real_launches=mcmc_launches,
                       expected_qf_real=QF_PER_ANALYSIS_LOGP * (logp_calls + derived_calls)),
         bestfit=dict(chi2=chi2, samples=len(chains.samples)),
-        template=tpl, device_busy_ms=trace.get("device_busy_ms"),
+        template=tpl, float64=float64, emulator_provider=emulator,
+        device_busy_ms=trace.get("device_busy_ms"),
         device_idle_share=trace.get("device_idle_share"), top=trace.get("top"))
     lines.append(line)
     checks = {
@@ -998,11 +1294,17 @@ def analysis_phase(lines: list) -> dict:
         f"template launches {tpl}": (tpl["qf_real_launches_at_build"] == 2
                                      and tpl["qf_real_launches_per_logp"] == 0
                                      and tpl["all_finite"]),
+        f"float64 logp {float64}": (float64["all_finite"]
+                                    and float64["qf_real_launches"] == 2 * QF_PER_ANALYSIS_LOGP),
+        f"emulator provider {emulator}": (emulator["all_finite"]
+                                          and emulator["max_abs_dlogp"] < LOGP_ABS_BUDGET
+                                          and emulator["qf_real_launches"] == 2),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: analysis: failed {failed}")
-    return by_shape
+    return {"analysis": by_shape, "analysis_float64": by_shape64,
+            "analysis_emulator": by_shape_emu}
 
 
 def main() -> None:
@@ -1060,6 +1362,11 @@ def main() -> None:
             shapes += [("qf_real", f32, nw, 255, 80, 114), ("qf_real", f32, nw, 255, 80, 76),
                        ("qf_real", f32, nw, 255, 50, 28)]
     rows = [check_kernel(*shape, gen=gen, n_timed=n_timed) for shape in shapes]
+    if not args.quick:
+        # the float64 kernel at the float64 analysis' shapes (fewer timed calls:
+        # its plain version takes ~0.1 s a call there)
+        rows += [check_kernel("qf_real", f64, args.batch, 255, s_, bl, gen=gen, n_timed=2)
+                 for s_, bl in ((80, 114), (80, 76), (50, 28))]
     lines.append(emit("kernel_checks", kernels=rows))
     if args.quick:
         print(smi)
@@ -1074,13 +1381,14 @@ def main() -> None:
         "main_path", "flagship LRG(nl=3)+ELG(nl=2), nfft_loop=256, window, solver_emulator",
         dict(), nb=args.batch, n_timed=3, chunk_trials=CHUNK_TRIALS, full=True, lines=lines)
     by_path.update(sampling_phase(model, ref_model, lines))
+    by_path["lowrank"] = lowrank_phase(model, ref_model, lines)
     del model, ref_model
     by_path["main_path_lite"], _, _ = flagship_path(
         "main_path_lite", "flagship LRG(nl=3)+ELG(nl=2), nfft_loop=256, eh98, no window",
         dict(with_window=False, cosmology="eh98"), nb=LITE_BATCH, n_timed=1,
         chunk_trials=(), full=False, lines=lines)
     stages_check(64, lines)
-    by_path["analysis"] = analysis_phase(lines)
+    by_path.update(analysis_phase(lines))
 
     # ---- the kernels line: one row per kernel and shape the paths launched,
     # with the launches of each path and their sum -------------------------
@@ -1089,7 +1397,9 @@ def main() -> None:
         key = (row["kernel"], row["dtype"], row["W"], row["N"], row["S"], row["BL"])
         per_path = {path: counts[key] for path, counts in by_path.items() if key in counts}
         if not per_path:
-            continue  # a shape of the checks only (ragged, float64)
+            continue  # a shape of the checks only (ragged)
+        if row["kernel"] == "qf_real":
+            per_path.setdefault("lowrank", 0)  # the low-rank route: two matmuls, no kernel
         out_rows.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "peak", "library_ms", "prepared")}

@@ -6,12 +6,11 @@ Reads the getdist-style output of :class:`eftpipe_tpu_torch.parallel.mcmc.
 MCMCDriver` — and of the JAX package's driver, whose files are the same —
 (``<prefix>.<i>.txt`` + ``<prefix>.paramnames`` + ``<prefix>.params.json``),
 with multi-chain concatenation, burn-in removal, sampled/derived splits,
-bestfit extraction and weighted summary statistics.  Reading an upstream
-Cobaya run (``from_cobaya``, ``progress``) is not ported: it needs PyYAML
-and belongs with ``compat/cobaya.py`` (ROADMAP A7).  Where the JAX module
+bestfit extraction and weighted summary statistics; and an upstream Cobaya
+run (``from_cobaya``, ``progress``, ``fixed_params``).  Where the JAX module
 returns a pandas ``Series`` this returns a ``dict`` (name → value); its
-``DataFrame`` of samples is :class:`Samples`, a 2-D array with named
-columns.
+``DataFrame`` is :class:`Samples`, a 2-D array with named columns.  PyYAML
+is imported only to read a Cobaya run's YAML files.
 """
 
 from __future__ import annotations
@@ -21,6 +20,14 @@ import json
 import numpy as np
 from dataclasses import dataclass, field
 from pathlib import Path
+
+
+def _read_yaml(path: Path):
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(f"reading {path} needs PyYAML, which is not installed") from e
+    return yaml.safe_load(path.read_text())
 
 
 @dataclass
@@ -78,6 +85,91 @@ class ChainProducts:
             meta = json.loads(meta_file.read_text())
         return cls(root=prefix, samples=samples, param_names=names,
                    derived_names=derived, meta=meta)
+
+    @classmethod
+    def from_cobaya(cls, src, burn_in: float = 0.0) -> "ChainProducts":
+        """Read an upstream-format **Cobaya run** (upstream
+        ``analysis.py:119-271``).
+
+        ``src`` is the run prefix (``path/to/run``) or one of its YAML files
+        (``run.input.yaml`` / ``run.updated.yaml`` / a launch YAML with an
+        ``output:`` entry).  Reads the ``<root>.<i>.txt`` chains with their
+        column names from the ``#`` header line (Cobaya writes no
+        ``.paramnames``), and ``<root>.updated.yaml`` (else ``.input.yaml``)
+        for the sampled / fixed / derived split; ``.progress`` and
+        ``.minimum`` are read on demand (:meth:`progress`, :meth:`bestfit`)."""
+        src = str(src)
+        if src.endswith((".input.yaml", ".updated.yaml")):
+            prefix = src[: -len(".input.yaml")] if src.endswith(".input.yaml") \
+                else src[: -len(".updated.yaml")]
+        elif src.endswith((".yaml", ".yml")):
+            out = _read_yaml(Path(src)).get("output")
+            if out is None:
+                raise ValueError(f"{src} has no 'output' entry")
+            out = Path(out)
+            prefix = str(out if out.is_absolute() else Path(src).resolve().parent / out)
+        else:
+            prefix = src
+        prefix = str(Path(prefix))
+
+        files = sorted(glob.glob(f"{prefix}.[0-9]*.txt"))
+        if not files:
+            raise FileNotFoundError(f"no Cobaya chain files for {prefix}")
+        with open(files[0]) as f:
+            header = f.readline()
+        if not header.lstrip().startswith("#"):
+            raise ValueError(f"{files[0]} has no '#' header line — not a Cobaya chain")
+        cols = header.lstrip("# ").split()
+        parts = []
+        for fn in files:
+            arr = np.atleast_2d(np.loadtxt(fn))
+            if burn_in:
+                arr = arr[int(burn_in * arr.shape[0]):]
+            parts.append(arr)
+        values = np.concatenate(parts, axis=0)
+        samples = Samples(columns=cols[: values.shape[1]], values=values)
+
+        updated = input_info = {}
+        if Path(prefix + ".updated.yaml").exists():
+            updated = _read_yaml(Path(prefix + ".updated.yaml")) or {}
+        if Path(prefix + ".input.yaml").exists():
+            input_info = _read_yaml(Path(prefix + ".input.yaml")) or {}
+        params_info = (updated or input_info).get("params", {}) or {}
+        sampled = [p for p, c in params_info.items() if isinstance(c, dict) and "prior" in c]
+        fixed = {
+            p: c["value"] for p, c in params_info.items()
+            if isinstance(c, dict) and "value" in c
+            and not c.get("derived", False)
+            and not isinstance(c["value"], str)  # lambdas are derived inputs
+        }
+        # everything beyond (weight, minuslogpost, sampled) is a derived
+        # column: Cobaya's minuslogprior/chi2 bookkeeping plus the
+        # likelihood's marg_*/*_fullchi2 extras
+        names = [c for c in cols if c in sampled]
+        derived = [c for c in cols[2:] if c not in sampled]
+        meta = dict(format="cobaya", nchains=len(files), input_info=input_info,
+                    updated_info=updated,
+                    sampled_param_specs={p: params_info[p] for p in sampled},
+                    fixed_params=fixed)
+        if not names:  # no YAML found: fall back to positional split
+            names, derived = cols[2:], []
+        return cls(root=prefix, samples=samples, param_names=names,
+                   derived_names=derived, meta=meta)
+
+    # -- Cobaya sidecar files ------------------------------------------------
+    def progress(self) -> Samples:
+        """``<root>.progress`` convergence history (N, acceptance rate, R−1;
+        upstream ``analysis.py:245-261``)."""
+        path = Path(f"{self.root}.progress")
+        if not path.exists():
+            raise FileNotFoundError(path)
+        with open(path) as f:
+            header = f.readline().lstrip("# ").split()
+        arr = np.atleast_2d(np.loadtxt(path))
+        return Samples(columns=header[: arr.shape[1]], values=arr)
+
+    def fixed_params(self) -> dict[str, float]:
+        return dict(self.meta.get("fixed_params", {}))
 
     # -- a minimizer's bestfit -------------------------------------------------
     def minimum(self) -> dict | None:

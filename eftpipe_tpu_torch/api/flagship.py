@@ -35,7 +35,7 @@ from .. import resolve_device
 from ..models.config import EFTConfig
 from ..models.pipeline import TracerPipeline
 from ..models.ap import lcdm_da, lcdm_hubble
-from ..models.nonlinear import cf_loop_complex, complex_cf_matrices
+from ..models.nonlinear import LOWRANK_TOL, cf_loop_complex, complex_cf_matrices
 from ..likelihood.likelihood import EFTLikelihood, TracerSpec
 from ..likelihood.parambasis import WestCoastBasis
 from ..likelihood.covariance import GaussianCovariance, Multipole
@@ -163,7 +163,8 @@ def _resolve_cosmology(cosmology: str | None) -> str:
 def build_flagship(
     workdir, dtype=torch.float64, with_window: bool = True, window_nmax: int = 2048,
     cosmology: str | None = None, device=None, quadform: str = "kernel",
-    ap_gl: int = 16,
+    ap_gl: int = 16, ap_quadrature: str = "by_dtype", lowrank_tol: float = LOWRANK_TOL,
+    cf_premix: bool = True,
 ) -> FlagshipModel:
     """Build the flagship model on ``device`` (default: the card; raises when
     there is none — pass ``device="cpu"`` for the plain PyTorch path).
@@ -171,9 +172,19 @@ def build_flagship(
     with_window, window_nmax : the survey window and its FFTLog size.
     cosmology : "solver_emulator", "eh98", or None (the emulator when its
         artifact ships).
-    quadform : "kernel" (the fused CUDA quadratic forms on the card) or
-        "plain" (their two-einsum plain version, an independent reference).
+    quadform : "kernel" (the fused CUDA quadratic forms on the card),
+        "plain" (their two-einsum plain version, an independent reference)
+        or "lowrank" (the truncated-eigenbasis factors at the cut
+        ``lowrank_tol``, the CF loop premixed unless ``cf_premix`` is False;
+        the JAX package's float32 route, an approximation).
     ap_gl : Gauss–Legendre nodes of the float32 AP quadrature.
+    ap_quadrature : "by_dtype" (float32: ``ap_gl`` Gauss–Legendre nodes,
+        float64: the 200-point trapezoid) or "gauss_legendre" (``ap_gl``
+        nodes in every dtype, so that two dtypes differ by rounding alone).
+
+    The mock data and covariance are those of the default float64 dense
+    model whatever ``dtype``, ``quadform`` and ``ap_quadrature`` are, so
+    every route is compared on the same data.
     """
     device = resolve_device(device)
     workdir = Path(workdir)
@@ -200,7 +211,7 @@ def build_flagship(
 
     om_fid = (FIDUCIAL["omega_b"] + FIDUCIAL["omega_cdm"]) / FIDUCIAL["h"] ** 2
 
-    def make_pipeline(name, pipe_dtype):
+    def make_pipeline(name, pipe_dtype, route=quadform, quadrature=ap_quadrature):
         tc = TRACERS[name]
         nl = max(tc["ls"]) // 2 + 1
         cfg = EFTConfig(nl=nl, no=nl, nd_a=tc["nd"])
@@ -215,12 +226,14 @@ def build_flagship(
             zeff=tc["zeff"],
             with_irresum=True,
             apeffect=dict(om_ap=om_fid, z_ap=tc["zeff"], rdrag_ap=147.66,
-                          hubble_ap=FIDUCIAL["h"], n_gl=ap_gl),
+                          hubble_ap=FIDUCIAL["h"], n_gl=ap_gl, quadrature=quadrature),
             window=window,
             cache_dir=cache,
             device=device,
             dtype=pipe_dtype,
-            quadform=quadform,
+            quadform=route,
+            lowrank_tol=lowrank_tol,
+            cf_premix=cf_premix,
         )
 
     providers: dict = {}
@@ -234,14 +247,19 @@ def build_flagship(
         fid_params.update({f"{name}_{b}": tc[b] for b in BIAS_NAMES})
 
     # ---- mock data + analytic covariance at the fiducial point, always
-    # generated in float64 whatever the model's dtype ----------------------
+    # generated by the default float64 dense model whatever this model's
+    # dtype, route and quadrature ------------------------------------------
     data_ready = all((workdir / f"data_{n}.txt").exists() for n in TRACERS) and (
         workdir / "cov.txt"
     ).exists()
     if not data_ready:
         cov_blocks = []
         for name, tc in TRACERS.items():
-            pipe = pipes[name] if dtype == torch.float64 else make_pipeline(name, torch.float64)
+            pipe = pipes[name]
+            if dtype != torch.float64 or quadform == "lowrank" or ap_quadrature != "by_dtype":
+                pipe = make_pipeline(name, torch.float64,
+                                     route="kernel" if quadform == "lowrank" else quadform,
+                                     quadrature="by_dtype")
             binning = pipe.binning_tables(kout[name])
             ls, keff, plk = _fiducial_multipoles(
                 pipe, providers[name], fid_params, WestCoastBasis(prefix=f"{name}_"), binning

@@ -17,12 +17,14 @@ parameters are those with a ``prior``; the rest are fixed or computed
 ``logp`` (uniform → hard bounds, norm → Gaussian).
 
 Differences from the JAX module, all of the kind "switches are arguments":
-``from_config(src, dtype=, device=, quadform=)`` takes the dtype explicitly
-(default float64, as ``build_flagship``), the device (the card unless
-``device="cpu"``) and the quadratic forms' route; ``run_mcmc`` seeds a
-``torch.Generator``.  The ``emulator`` provider (``EmulatorProvider``) and
-the ``solver`` provider raise ``NotImplementedError`` naming their ROADMAP
-items (A7, A8); ``mesh=`` raises naming A13.
+``from_config(src, dtype=, device=, quadform=, lowrank_tol=, cf_premix=)``
+takes the dtype explicitly (default float64, as ``build_flagship``; the CLI
+defaults to float32, as the JAX CLI), the device (the card unless
+``device="cpu"``) and the quadratic forms' route ("kernel", "plain", or
+"lowrank" with its cut and CF premix: the JAX package's
+``EFTPIPE_TPU_LOWRANK*`` / ``EFTPIPE_TPU_CF_PREMIX``); ``run_mcmc`` seeds a
+``torch.Generator``.  The ``solver`` provider raises ``NotImplementedError``
+naming its ROADMAP item (A8); ``mesh=`` raises naming A13.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from ..likelihood.parambasis import find_param_basis
 from ..boltzmann.eh98 import EisensteinHuProvider
 from ..boltzmann.providers import FixedTemplateProvider, TabulatedProvider
 from ..models.ap import lcdm_da, lcdm_hubble
+from ..models.nonlinear import LOWRANK_TOL
 from ..utils.dicttools import recursively_update_dict
 from . import products as _products
 
@@ -161,6 +164,8 @@ def build_tracer(
     device=None,
     dtype=torch.float64,
     quadform: str = "kernel",
+    lowrank_tol: float = LOWRANK_TOL,
+    cf_premix: bool = True,
 ):
     """(EFTConfig, TracerPipeline, provider, basis) from one tracer block."""
     zeff = float(tcfg.get("z", tcfg.get("zeff", 0.5)))
@@ -218,6 +223,8 @@ def build_tracer(
         device=device,
         dtype=dtype,
         quadform=quadform,
+        lowrank_tol=lowrank_tol,
+        cf_premix=cf_premix,
     )
 
     prefix = tcfg.get("prefix", name + "_")
@@ -249,9 +256,10 @@ def build_provider(bcfg: Mapping[str, Any], cfg: EFTConfig, zeff: float):
     if name == "tabulated":
         return TabulatedProvider(cfg=cfg, **bcfg)
     if name == "emulator":
-        raise NotImplementedError(
-            "boltzmann provider 'emulator' (EmulatorProvider / TransferEmulator) "
-            "is not ported yet (ROADMAP A7); 'solver_emulator' is")
+        # a trained transfer-function MLP (``TransferEmulator.save`` file)
+        from ..boltzmann.emulator import EmulatorProvider
+
+        return EmulatorProvider.load(cfg=cfg, zeff=zeff, **bcfg)
     if name == "solver":
         raise NotImplementedError(
             "boltzmann provider 'solver' (the on-device Einstein-Boltzmann "
@@ -519,6 +527,8 @@ class Analysis:
     source_info: dict | None = None   # normalized config (paths resolved)
     device: Any = None
     quadform: str = "kernel"
+    lowrank_tol: float = LOWRANK_TOL
+    cf_premix: bool = True
 
     def __post_init__(self):
         if not self.likes and self.like is not None:
@@ -548,15 +558,19 @@ class Analysis:
                 tcfg.pop("zeff", None)
                 tcfg["z"] = float(zeff)
         return Analysis.from_config(info, dtype=dtype or self.dtype, device=self.device,
-                                    quadform=self.quadform)
+                                    quadform=self.quadform, lowrank_tol=self.lowrank_tol,
+                                    cf_premix=self.cf_premix)
 
     # -- construction ---------------------------------------------------
     @classmethod
     def from_config(cls, src, dtype=torch.float64, device=None,
-                    quadform: str = "kernel") -> "Analysis":
+                    quadform: str = "kernel", lowrank_tol: float = LOWRANK_TOL,
+                    cf_premix: bool = True) -> "Analysis":
         """Build on ``device`` (default: the card; raises when there is none —
         pass ``device="cpu"`` for the plain PyTorch path) in ``dtype``;
-        ``quadform`` is the quadratic forms' route ("kernel" or "plain")."""
+        ``quadform`` is the quadratic forms' route ("kernel", "plain" or
+        "lowrank"; with "lowrank" the factors' cut ``lowrank_tol`` and the
+        premixed CF loop ``cf_premix``, see ``TracerPipeline.build``)."""
         device = resolve_device(device)
         info = load_config(src)
         theory = info.get("theory", {})
@@ -612,6 +626,7 @@ class Analysis:
             cfg, pipe, provider, basis = build_tracer(
                 name, tcfg, cross_partners=partners, cache_dir=cache_dir,
                 device=device, dtype=dtype, quadform=quadform,
+                lowrank_tol=lowrank_tol, cf_premix=cf_premix,
             )
             configs[name], pipelines[name] = cfg, pipe
             providers[name], bases[name] = provider, basis
@@ -681,6 +696,7 @@ class Analysis:
             configs=configs, pipelines=pipelines, providers=providers,
             bases=bases, like=like, likes=likes, space=space, dtype=dtype,
             source_info=copy.deepcopy(info), device=device, quadform=quadform,
+            lowrank_tol=lowrank_tol, cf_premix=cf_premix,
         )
 
     # -- evaluation -------------------------------------------------------

@@ -1,7 +1,12 @@
-"""Solver-emulator cosmology, run-time half (counterpart of
-``eftpipe_tpu/boltzmann/emulator.py``: ``PkEmulator`` and
-``SolverEmulatorProvider``; training and the transfer-function MLP are not
-ported).
+"""Emulator cosmology, run-time half (counterpart of
+``eftpipe_tpu/boltzmann/emulator.py``: ``TransferEmulator`` and
+``EmulatorProvider``, ``PkEmulator`` and ``SolverEmulatorProvider``;
+training is not ported).
+
+``TransferEmulator`` is an MLP from (ω_b, ω_cdm, h, n_s) to log T(k) on a
+fixed k grid, read from the JAX package's ``TransferEmulator.save`` file;
+``EmulatorProvider`` turns it into the pipeline's ``CosmoInputs`` with the
+exact flat-ΛCDM growth and background of ``eh98.py``.
 
 ``PkEmulator`` is a polynomial ridge on normalised (ω_b, ω_cdm, h[, m_ncdm])
 that predicts log T(k, z) of total matter and cb on the solver's grids and
@@ -30,7 +35,7 @@ from ..models.config import EFTConfig
 from ..models.pipeline import CosmoInputs
 from ..models.window import MetaInfoError
 from ..ops.interp import MatmulInterp
-from .eh98 import _gauss_nodes
+from .eh98 import _KPIVOT, _gauss_nodes, lcdm_background, lcdm_growth
 
 _ARTIFACT_DIR = Path(__file__).resolve().parent / "artifacts"
 DEFAULT_PK_ARTIFACT = _ARTIFACT_DIR / "pk_emulator_mnu06.npz"
@@ -79,6 +84,120 @@ def _poly_design(xn, degree: int, cache: dict):
 def _smoothstep(t):
     t = torch.clamp(t, 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
+
+
+# ----------------------------------------------------------------------
+# the transfer-function MLP (the matryoshka analogue)
+# ----------------------------------------------------------------------
+def mlp_apply(params, x):
+    """tanh MLP: params [{"w": (din, dout), "b": (dout,)}, ...], x (..., din)."""
+    for layer in params[:-1]:
+        x = torch.tanh(x @ layer["w"] + layer["b"])
+    last = params[-1]
+    return x @ last["w"] + last["b"]
+
+
+@dataclass(eq=False)
+class TransferEmulator:
+    """log T(k) emulator on a fixed k grid [1/Mpc] (host NumPy arrays; moved
+    to a device once per (device, dtype) at first use)."""
+
+    params: list                # [{"w": (din, dout), "b": (dout,)}, ...]
+    kgrid: np.ndarray           # Mpc^-1
+    x_mean: np.ndarray
+    x_std: np.ndarray
+    y_mean: np.ndarray
+    y_std: np.ndarray
+    input_names: tuple = ("omega_b", "omega_cdm", "h", "ns")
+    _cache: dict = field(default_factory=dict, repr=False)
+
+    def _tensors(self, like) -> dict:
+        key = (like.device, like.dtype)
+        if key not in self._cache:
+            dev = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=like.dtype,
+                                            device=like.device)
+            self._cache[key] = dict(
+                params=[{"w": dev(layer["w"]), "b": dev(layer["b"])} for layer in self.params],
+                **{name: dev(getattr(self, name))
+                   for name in ("x_mean", "x_std", "y_mean", "y_std")})
+        return self._cache[key]
+
+    def __call__(self, x):
+        """x: (W, nin) raw inputs → T(k) (W, nk)."""
+        c = self._tensors(x)
+        y = mlp_apply(c["params"], (x - c["x_mean"]) / c["x_std"])
+        return torch.exp(y * c["y_std"] + c["y_mean"])
+
+    def save(self, path) -> None:
+        """The JAX package's ``TransferEmulator.save`` layout."""
+        flat = {}
+        for i, layer in enumerate(self.params):
+            flat[f"w{i}"] = np.asarray(layer["w"])
+            flat[f"b{i}"] = np.asarray(layer["b"])
+        np.savez(path, kgrid=self.kgrid, x_mean=np.asarray(self.x_mean),
+                 x_std=np.asarray(self.x_std), y_mean=np.asarray(self.y_mean),
+                 y_std=np.asarray(self.y_std), nlayers=len(self.params), **flat)
+
+    @classmethod
+    def load(cls, path) -> "TransferEmulator":
+        with np.load(path) as z:
+            n = int(z["nlayers"])
+            params = [{"w": np.asarray(z[f"w{i}"]), "b": np.asarray(z[f"b{i}"])}
+                      for i in range(n)]
+            return cls(params=params, kgrid=np.asarray(z["kgrid"]),
+                       x_mean=np.asarray(z["x_mean"]), x_std=np.asarray(z["x_std"]),
+                       y_mean=np.asarray(z["y_mean"]), y_std=np.asarray(z["y_std"]))
+
+
+@dataclass(eq=False)
+class EmulatorProvider:
+    """Cosmology provider backed by a :class:`TransferEmulator`
+    (matryoshka.py:67-157 analogue): P_lin = (8π²/25) A_s (k/k_p)^{n_s−1}
+    k T²(k) D²(z) (c/H0)⁴/Ω_m², with T interpolated linearly in log k
+    (clamped at the grid's ends) onto cfg.kin·h."""
+
+    cfg: EFTConfig
+    zeff: float
+    emulator: TransferEmulator
+    da_fid: float | None = None
+    h_fid: float | None = None
+    use_ap: bool = True
+    _cache: dict = field(default_factory=dict, repr=False)
+    _interp: MatmulInterp | None = field(default=None, repr=False)
+
+    @classmethod
+    def load(cls, cfg: EFTConfig, zeff: float, path, om_fid: float = 0.31,
+             use_ap: bool = True) -> "EmulatorProvider":
+        from ..models.ap import lcdm_da, lcdm_hubble
+
+        return cls(cfg=cfg, zeff=zeff, emulator=TransferEmulator.load(path),
+                   da_fid=lcdm_da(om_fid, zeff), h_fid=lcdm_hubble(om_fid, zeff),
+                   use_ap=use_ap)
+
+    def inputs(self, params) -> CosmoInputs:
+        """``params``: name → (W,) tensor, all on one device in one dtype."""
+        h = params["h"]
+        om = (params["omega_b"] + params["omega_cdm"]) / h**2
+        x = torch.stack([params[n] for n in self.emulator.input_names], dim=-1)
+        t_emu = self.emulator(x)                                        # (W, nk_emu)
+        if self._interp is None:
+            self._interp = MatmulInterp.build(np.log(self.emulator.kgrid))
+        kin = _const(self._cache, "kin", lambda: self.cfg.kin, h)
+        k_mpc = kin * h[:, None]                                        # (W, nkin)
+        t = torch.exp(self._interp.interp_rows(torch.log(k_mpc), torch.log(t_emu)))
+        d, f = lcdm_growth(om, self.zeff)
+        as_ = 1e-10 * torch.exp(params["ln10As"])
+        prim = as_[:, None] * (k_mpc / _KPIVOT) ** (params["ns"][:, None] - 1.0)
+        c_h0 = 2997.92458 / h
+        pk = ((8.0 * math.pi**2 / 25.0) * prim * k_mpc * (t * d[:, None]) ** 2
+              * (c_h0**4)[:, None] / (om**2)[:, None])
+        pk = pk * (h**3)[:, None]
+        if self.use_ap and self.da_fid is not None:
+            e, da = lcdm_background(om, self.zeff)
+            qperp, qpar = da / self.da_fid, self.h_fid / e
+        else:
+            qperp = qpar = torch.ones_like(h)
+        return CosmoInputs(plin=pk, f=f, qperp=qperp, qpar=qpar)
 
 
 @dataclass(eq=False)

@@ -13,8 +13,12 @@ bestfit      evaluate/plot the bestfit theory of a finished run
 plot-window, zeff, bench   not ported yet: each exits with a message naming
              its ROADMAP item
 
-Both ported commands run on the card unless ``--device cpu`` is given, in
-float64 (``Analysis.from_config``'s default).
+Both ported commands build their analysis on the card unless ``--device
+cpu`` is given, in float32 as the JAX CLI does (``--dtype float64`` is the
+counterpart of its x64 switch, for parity runs), with the quadratic forms'
+route of ``--quadform`` (``kernel``, the default; ``plain``; ``lowrank``, the
+counterpart of ``EFTPIPE_TPU_LOWRANK``, with ``--lowrank-tol`` and
+``--no-cf-premix``).
 """
 
 from __future__ import annotations
@@ -33,10 +37,18 @@ _UNPORTED = {
 }
 
 
-def cmd_run(args) -> int:
+def _analysis(args):
+    import torch
+
     from .api.orchestrate import Analysis
 
-    an = Analysis.from_config(args.config, device=args.device)
+    return Analysis.from_config(
+        args.config, dtype=getattr(torch, args.dtype), device=args.device,
+        quadform=args.quadform, lowrank_tol=args.lowrank_tol, cf_premix=args.cf_premix)
+
+
+def cmd_run(args) -> int:
+    an = _analysis(args)
     print(f"sampled params ({an.space.ndim}): {an.space.sampled}")
     res = an.run_mcmc(
         nwalkers=args.walkers, out=args.out, rhat_tol=args.rhat,
@@ -52,10 +64,9 @@ def cmd_run(args) -> int:
 
 
 def cmd_bestfit(args) -> int:
-    from .api.orchestrate import Analysis
     from .analysis import ChainProducts, BestfitModel
 
-    an = Analysis.from_config(args.config, device=args.device)
+    an = _analysis(args)
     cp = ChainProducts.from_prefix(args.chains, burn_in=args.burn_in)
     bf = BestfitModel.from_chains(an, cp)
     print("bestfit point:", {p: round(float(v), 5) for p, v in bf.params.items()})
@@ -85,9 +96,19 @@ def cmd_unported(args) -> int:
     return 2
 
 
-def _add_device(p) -> None:
+def _add_build(p) -> None:
+    from .models.nonlinear import LOWRANK_TOL, QUADFORMS
+
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' for the plain path)")
+    p.add_argument("--dtype", choices=("float32", "float64"), default="float32",
+                   help="evaluation dtype (default float32, as the JAX CLI)")
+    p.add_argument("--quadform", choices=QUADFORMS, default="kernel",
+                   help="route of the loop's quadratic forms (default: kernel)")
+    p.add_argument("--lowrank-tol", type=float, default=LOWRANK_TOL,
+                   help="spectral cut of the lowrank route's factors")
+    p.add_argument("--no-cf-premix", dest="cf_premix", action="store_false",
+                   help="lowrank route: per-structure CF factors, not premixed ones")
 
 
 def main(argv=None) -> int:
@@ -103,7 +124,7 @@ def main(argv=None) -> int:
     p.add_argument("--rhat", type=float, default=0.01)
     p.add_argument("--out", default="chains/run")
     p.add_argument("--key", type=int, default=0)
-    _add_device(p)
+    _add_build(p)
     p.set_defaults(func=cmd_run)
 
     p = sub.add_parser("bestfit", help="bestfit theory from a finished run")
@@ -113,7 +134,7 @@ def main(argv=None) -> int:
     p.add_argument("--burn-in", type=float, default=0.3)
     p.add_argument("-o", "--output")
     p.add_argument("--plot")
-    _add_device(p)
+    _add_build(p)
     p.set_defaults(func=cmd_bestfit)
 
     for name in _UNPORTED:

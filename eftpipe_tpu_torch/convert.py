@@ -11,6 +11,8 @@ them over here, so that both sides compute from IDENTICAL constants:
   covariance, gather indices, binning / interpolation matrices, chained and
   cross tracers and marginal prior;
 * :func:`emulator_from_numpy` — a ``PkEmulator`` from its arrays;
+* :func:`transfer_emulator_from_numpy` — a ``TransferEmulator`` (the MLP of
+  the ``emulator`` provider) from its parameters;
 * :func:`analysis_from_numpy` — a config-driven ``Analysis``: its pipelines'
   tables, frozen templates, providers, bases, likelihood blocks and
   parameter space;
@@ -27,7 +29,7 @@ from . import resolve_device, to_device
 from .likelihood.likelihood import EFTLikelihood, TracerSpec, _TracerRuntime
 from .likelihood.marginal import MarginalSetup
 from .likelihood.parambasis import find_param_basis
-from .boltzmann.emulator import PkEmulator
+from .boltzmann.emulator import PkEmulator, TransferEmulator
 from .boltzmann.eh98 import EisensteinHuProvider
 from .boltzmann.providers import FixedTemplateProvider
 from .models.config import EFTConfig
@@ -45,17 +47,20 @@ def _plan(d) -> FFTLogPlan:
 
 def pipeline_from_numpy(cfg: EFTConfig, tables: dict, device=None,
                         dtype=torch.float64, zeff: float | None = None,
-                        quadform: str = "kernel") -> TracerPipeline:
+                        quadform: str = "kernel", cf_premix: bool = True) -> TracerPipeline:
     """A ``TracerPipeline`` from ``tables = {"nt", "bt", "rt", "at", "wt",
     "wmt", "ft"}`` (all but the first two optional; ``wt["icc"]`` holds the
-    coupled integral-constraint tables, or None).  ``nt["plan_cf"]`` may be ``None`` or absent when it
-    is the same plan as ``nt["plan_pk"]``.  Entries of the JAX tables that
-    this slice does not use (the low-rank factors) are dropped."""
+    coupled integral-constraint tables, or None).  ``nt["plan_cf"]`` may be
+    ``None`` or absent when it is the same plan as ``nt["plan_pk"]``;
+    ``nt["lowrank"]`` (the JAX tables' low-rank factors) serves
+    ``quadform="lowrank"``."""
     device = resolve_device(device)
-    nt = {k: v for k, v in tables["nt"].items() if k != "lowrank"}
+    nt = dict(tables["nt"])
+    if nt.get("lowrank") is None:
+        nt.pop("lowrank", None)
     nt["plan_pk"] = _plan(nt["plan_pk"])
     nt["plan_cf"] = _plan(nt["plan_cf"]) if nt.get("plan_cf") is not None else nt["plan_pk"]
-    bt = {k: v for k, v in tables["bt"].items() if not k.startswith("cp_")}
+    bt = tables["bt"]
     rt = tables.get("rt")
     if rt is not None:
         rt = dict(rt, plan=_plan(rt["plan"]), xplan=_plan(rt["xplan"]))
@@ -74,7 +79,8 @@ def pipeline_from_numpy(cfg: EFTConfig, tables: dict, device=None,
         bt=to_device(bt, device, dtype),
         rt=to_device(rt, device, dtype) if rt is not None else None,
         at=to_device(at, device, dtype) if at is not None else None,
-        **stages, zeff=zeff, device=device, dtype=dtype, quadform=quadform)
+        **stages, zeff=zeff, device=device, dtype=dtype, quadform=quadform,
+        cf_premix=cf_premix)
 
 
 def emulator_from_numpy(state: dict) -> PkEmulator:
@@ -87,6 +93,18 @@ def emulator_from_numpy(state: dict) -> PkEmulator:
         raise ValueError(f"unknown PkEmulator fields {sorted(unknown)}")
     return PkEmulator(**{k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
                          for k, v in state.items()})
+
+
+def transfer_emulator_from_numpy(state: dict) -> TransferEmulator:
+    """A ``TransferEmulator`` from ``state = {"params": [{"w", "b"}, ...],
+    "kgrid", "x_mean", "x_std", "y_mean", "y_std", "input_names"
+    (optional)}`` — the fields of the JAX package's emulator as NumPy."""
+    arrays = {k: np.asarray(state[k], np.float64)
+              for k in ("kgrid", "x_mean", "x_std", "y_mean", "y_std")}
+    params = [{"w": np.asarray(layer["w"], np.float64), "b": np.asarray(layer["b"], np.float64)}
+              for layer in state["params"]]
+    extra = {"input_names": tuple(state["input_names"])} if "input_names" in state else {}
+    return TransferEmulator(params=params, **arrays, **extra)
 
 
 def _basis(ts: dict):
@@ -179,7 +197,8 @@ def provider_from_numpy(cfg: EFTConfig, state: dict):
     """A cosmology provider from ``state = {"kind": ..., **fields}``:
     ``fixed_template`` (``plin`` on cfg.kin) or ``eh98`` (``zeff``,
     ``da_fid``, ``h_fid``, ...).  The solver emulator carries across through
-    :func:`emulator_from_numpy`."""
+    :func:`emulator_from_numpy`, the transfer emulator through
+    :func:`transfer_emulator_from_numpy`."""
     state = dict(state)
     kind = state.pop("kind")
     if kind == "fixed_template":
@@ -202,7 +221,7 @@ def frozen_from_numpy(pipe: TracerPipeline, frozen: dict) -> TracerPipeline:
 
 
 def analysis_from_numpy(state: dict, device=None, dtype=torch.float64,
-                        quadform: str = "kernel"):
+                        quadform: str = "kernel", cf_premix: bool = True):
     """A config-driven ``Analysis`` from plain data:
 
     state = {"configs": {name: EFTConfig fields},
@@ -224,7 +243,8 @@ def analysis_from_numpy(state: dict, device=None, dtype=torch.float64,
         cfg = EFTConfig(**fields)
         configs[name] = cfg
         pipe = pipeline_from_numpy(cfg, state["tables"][name], device=device, dtype=dtype,
-                                   zeff=state["zeff"][name], quadform=quadform)
+                                   zeff=state["zeff"][name], quadform=quadform,
+                                   cf_premix=cf_premix)
         pipe.with_rsd = bool(state.get("with_rsd", {}).get(name, True))
         if state.get("frozen", {}).get(name) is not None:
             frozen_from_numpy(pipe, state["frozen"][name])
@@ -241,7 +261,7 @@ def analysis_from_numpy(state: dict, device=None, dtype=torch.float64,
         configs=configs, pipelines=pipelines, providers=providers, bases=bases,
         like=next(iter(likes.values())) if len(likes) == 1 else None, likes=likes,
         space=ParamSpace.from_config(state["params"]), dtype=dtype, device=device,
-        quadform=quadform)
+        quadform=quadform, cf_premix=cf_premix)
 
 
 def driver_state_from_numpy(arrays) -> dict:

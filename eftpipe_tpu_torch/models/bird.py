@@ -72,6 +72,57 @@ def _exponent_tables(triples, nchan, nstruct):
     return mask, expo
 
 
+def loop_cp_groups():
+    """(channel, f-power) regrouping of the 28+10 loop structures.
+
+    Each structure enters exactly one channel with one fixed f-power
+    (pybird.py:762-803), so the regrouping factorises into a per-structure
+    f^p followed by a CONSTANT structure→(c, p)-group sum, which the
+    low-rank route folds into the CF matrices before their
+    eigendecomposition (``models/nonlinear.py::lowrank_tables_numpy``).
+
+    Returns (keys, onehot, pexp, members):
+      keys    — sorted list of (channel, power) pairs (G = 22)
+      onehot  — (nloop, G) 0/1 map group → channel
+      pexp    — (G,) float f-power of each group
+      members — {key: ([b22 indices], [b13 indices])}
+    """
+    members: dict[tuple, tuple[list, list]] = {}
+    for c, b, p in _R22:
+        members.setdefault((c, p), ([], []))[0].append(b)
+    for c, b, p in _R13:
+        members.setdefault((c, p), ([], []))[1].append(b)
+    keys = sorted(members)
+    nchan = 1 + max(c for c, _, _ in _R22)
+    onehot = np.zeros((nchan, len(keys)))
+    pexp = np.empty(len(keys))
+    for g, (c, p) in enumerate(keys):
+        onehot[c, g] = 1.0
+        pexp[g] = p
+    return keys, onehot, pexp, members
+
+
+def cf_group_map(nl: int, n22: int = 28, n13: int = 10) -> np.ndarray:
+    """Constant (G·nl, (n22+n13)·nl) premix matrix of the CF loop.
+
+    Row (g, ℓ) sums the structures of (channel, f-power) group ``g`` with
+    their Legendre ℓ-weights; columns follow the b-major/ℓ-minor stacking of
+    the folded CF matrices (``mcf_fold``, P22 block first).  Only the f^p
+    diagonal and the group→channel one-hot remain per evaluation
+    (:func:`assemble_bird`)."""
+    keys, _, _, members = loop_cp_groups()
+    lw = legendre_weights(nl)
+    gmap = np.zeros((len(keys) * nl, (n22 + n13) * nl))
+    for g, key in enumerate(keys):
+        b22s, b13s = members[key]
+        for l in range(nl):
+            for b in b22s:
+                gmap[g * nl + l, b * nl + l] = lw["l22"][l, b]
+            for b in b13s:
+                gmap[g * nl + l, (n22 + b) * nl + l] = lw["l13"][l, b]
+    return gmap
+
+
 def bird_tables_numpy(cfg: EFTConfig) -> dict:
     ltab = legendre_weights(cfg.nl)
     mask22, expo22 = _exponent_tables(_R22, cfg.nloop, cfg.n22)
@@ -81,7 +132,10 @@ def bird_tables_numpy(cfg: EFTConfig) -> dict:
     pstl[0, 1] = cfg.k**2
     if cfg.nl >= 2:
         pstl[1, 2] = cfg.k**2
+    _, cp_onehot, cp_pexp, _ = loop_cp_groups()
     return dict(
+        cp_onehot=cp_onehot,
+        cp_pexp=cp_pexp,
         s_kin_to_k=spline_matrix(cfg.kin, cfg.k),
         k=cfg.k,
         k2=cfg.k**2,
@@ -110,13 +164,10 @@ def _loop_weights(bt, f):
 def assemble_bird(bt: dict, cfg: EFTConfig, nl_out: dict, plin_kin, f) -> BirdState:
     """setPsCfl + reducePsCfl + setPstl + subtractShotNoise, batched.
 
-    nl_out : output of :func:`..nonlinear.nonlinear_pscf` (dense variant)
+    nl_out : output of :func:`..nonlinear.nonlinear_pscf`: the CF loop as
+        per-structure ``c22``/``c13`` or, premixed, as ``cloop_grp``
     plin_kin : (W, nkin) linear P on cfg.kin;  f : (W,) growth rate
     """
-    if "cloop_grp" in nl_out:
-        raise NotImplementedError(
-            "assemble_bird: the (channel, f-power)-premixed CF loop belongs to "
-            "the low-rank float32 path, which is not ported yet (ROADMAP A2)")
     dtype = plin_kin.dtype
     p11 = plin_kin @ bt["s_kin_to_k"].T  # (W, nk)
     l11, lct, lct_nnlo = bt["l11"], bt["lct"], bt["lct_nnlo"]
@@ -137,11 +188,18 @@ def assemble_bird(bt: dict, cfg: EFTConfig, nl_out: dict, plin_kin, f) -> BirdSt
     ploopl = torch.einsum("...cb,...lbx->...lcx", w22, p22l) + torch.einsum(
         "...cb,...lbx->...lcx", w13, p13l
     )
-    c22l = nl_out["c22"] * l22[:, :, None]
-    c13l = nl_out["c13"] * l13[:, :, None]
-    cloopl = torch.einsum("...cb,...lbx->...lcx", w22, c22l) + torch.einsum(
-        "...cb,...lbx->...lcx", w13, c13l
-    )
+    if "cloop_grp" in nl_out:
+        # the (channel, f-power)-premixed CF loop (cf_group_map folded into
+        # the low-rank factors): apply f^p and the group→channel one-hot
+        fpow = f[..., None] ** bt["cp_pexp"]
+        cloopl = torch.einsum("cg,...g,...gls->...lcs", bt["cp_onehot"], fpow,
+                              nl_out["cloop_grp"])
+    else:
+        c22l = nl_out["c22"] * l22[:, :, None]
+        c13l = nl_out["c13"] * l13[:, :, None]
+        cloopl = torch.einsum("...cb,...lbx->...lcx", w22, c22l) + torch.einsum(
+            "...cb,...lbx->...lcx", w13, c13l
+        )
     # constant stochastic contribution removed from the loops (pybird.py:861-866)
     ploopl = ploopl - ploopl[..., :1]
 

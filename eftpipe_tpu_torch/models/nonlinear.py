@@ -19,8 +19,12 @@ device once.  Phase B (``nonlinear_pscf``) runs on tensors with a leading
 walker axis: one FFTLog (two real matmuls) plus the contractions above, the
 two quadratic forms through the fused kernels.
 
-This slice ports the DENSE quadratic forms only: the low-rank / premixed
-float32 factors of the JAX package are not built.
+The low-rank route (``quadform="lowrank"``) is the JAX package's float32
+path: the truncated, whitened eigenbasis factors of both folds and of the
+(channel, f-power)-premixed CF fold (``lowrank_tables_numpy``), contracted by
+``ops/quadform.py::quad_form_lowrank``.  The factors are built only when a
+builder asks for that route, and it is never a default here: it is an
+approximation, held against the dense path by its callers.
 """
 
 from __future__ import annotations
@@ -35,12 +39,22 @@ from .. import to_device
 from ..ops import cplx
 from ..ops.fftlog import HostFFTLog, make_plan, fftlog_coef
 from ..ops.quadform import (
-    cf_contract, herm_fold, herm_w, kernel_matrices, qf_real_plain, quad_form_real,
-    trim_nyquist,
+    cf_contract, herm_fold, herm_w, kernel_matrices, lowrank_factors, qf_real_plain,
+    quad_form_lowrank, quad_form_real, trim_nyquist,
 )
 from ..tables.loop_matrices import m13_matrices, m22_matrices, mpc
 from ..utils.io import atomic_save_npz
+from .bird import cf_group_map
 from .config import EFTConfig
+
+QUADFORMS = ("kernel", "plain", "lowrank")
+# the spectral cut of the low-rank factors, relative to each matrix's
+# spectral radius after whitening (the JAX package's EFTPIPE_TPU_LOWRANK_TOL)
+LOWRANK_TOL = 1e-5
+# the identity of the factors' recipe (the JAX package's lr_version): a cache
+# written by another recipe is rebuilt, never reused
+LOWRANK_VERSION = 2
+_LOWRANK_KEYS = ("q22", "s22", "qcf", "scf", "qcfg", "scfg")
 
 
 def _loop_fft(cfg: EFTConfig) -> HostFFTLog:
@@ -48,24 +62,78 @@ def _loop_fft(cfg: EFTConfig) -> HostFFTLog:
     return HostFFTLog(n=cfg.nfft_loop, xmin=1.5e-5, xmax=1000.0, bias=-1.6)
 
 
+def _fid_coef_mag(plan, kin_plan: np.ndarray) -> np.ndarray:
+    """Fiducial |c_n| profile for the whitened spectral cut (host NumPy).
+
+    The per-dof dynamic range of the quadratic-form input w is the FFTLog
+    coefficients' decay (|s^{-ν_n-3}| does not depend on n: Re ν is the
+    constant bias), set by the taper window and the smoothness of P_lin, so a
+    BBKS shape stands in for every cosmology.  Whitening only changes WHICH
+    eigenpairs the cut keeps; the kept contraction stays exact."""
+    q = kin_plan / 0.15
+    tk = (np.log1p(2.34 * q) / (2.34 * q)
+          * (1 + 3.89 * q + (16.1 * q) ** 2 + (5.46 * q) ** 3
+             + (6.71 * q) ** 4) ** -0.25)
+    f = kin_plan * tk ** 2
+    parts = []
+    if plan.ileft > 0:
+        if plan.extrap_lo:
+            slope = (np.log(f[1]) - np.log(f[0])) / plan.lo_dlog
+            parts.append(f[0] * np.exp(slope * plan.lo_logx) * plan.lo_fac)
+        else:
+            parts.append(np.zeros(plan.ileft))
+    parts.append(f @ plan.smid.T)
+    if plan.iright < plan.n:
+        if plan.extrap_hi:
+            slope = (np.log(f[-1]) - np.log(f[-2])) / plan.hi_dlog
+            parts.append(f[-1] * np.exp(slope * plan.hi_logx) * plan.hi_fac)
+        else:
+            parts.append(np.zeros(plan.n - plan.iright))
+    fx = np.concatenate(parts)
+    c = np.hypot(fx @ plan.gre, fx @ plan.gim)
+    return np.maximum(c, 1e-8 * c.max())
+
+
+def _whiten_dofs(cmag: np.ndarray, nc: int) -> np.ndarray:
+    """Map the (n+1,) coefficient profile to the 2·nc−1 trimmed real dofs of
+    ``herm_w`` (zr rows n ∈ [nc, 2nc), then zi rows n ∈ (nc, 2nc))."""
+    half = cmag[nc:-1]
+    return np.concatenate([half, half[1:]])
+
+
 _TABLE_MEMO: dict[tuple, dict] = {}
+_LOWRANK_MEMO: dict[tuple, dict] = {}
 
 
-def nonlinear_tables_numpy(cfg: EFTConfig, cache_dir=None) -> dict:
+def _memo_key(cfg: EFTConfig) -> tuple:
+    """The fields that enter the tables: the FFTLog settings and the k/s/kin
+    grids (not km/kr/nd, which only scale the bias contraction)."""
+    return (cfg.nl, cfg.kmax, cfg.optiresum, cfg.ir_cutoff, cfg.k_ir,
+            cfg.nfft_loop, cfg.kin_min, cfg.kin_max, cfg.nkin)
+
+
+def _cache_file(cache_dir, stem: str, key: tuple) -> Path:
+    digest = hashlib.sha256(repr(key).encode()).hexdigest()[:16]
+    return Path(cache_dir) / f"{stem}_{digest}.npz"
+
+
+def nonlinear_tables_numpy(cfg: EFTConfig, cache_dir=None, lowrank_tol=None) -> dict:
     """Host-side constant tensors of the loop engine (complex128/float64).
 
-    Memoized on the fields that enter the tables (the FFTLog settings and
-    the k/s/kin grids — not km/kr/nd), so a multi-tracer build computes the
-    fold tensors once.  With ``cache_dir`` the two expensive fold tensors
-    also persist across processes (uncompressed npz, hash-keyed)."""
-    memo_key = (cfg.nl, cfg.kmax, cfg.optiresum, cfg.ir_cutoff, cfg.k_ir,
-                cfg.nfft_loop, cfg.kin_min, cfg.kin_max, cfg.nkin)
+    Memoized on the fields that enter the tables, so a multi-tracer build
+    computes the fold tensors once.  With ``cache_dir`` the two expensive
+    fold tensors also persist across processes (uncompressed npz,
+    hash-keyed).  With ``lowrank_tol`` the tables also hold ``lowrank``, the
+    factors of :func:`lowrank_tables_numpy` at that cut."""
+    memo_key = _memo_key(cfg)
     if memo_key in _TABLE_MEMO:
-        return dict(_TABLE_MEMO[memo_key])
+        tables = dict(_TABLE_MEMO[memo_key])
+        if lowrank_tol is not None:
+            tables["lowrank"] = lowrank_tables_numpy(cfg, lowrank_tol, cache_dir)
+        return tables
     fold_cache = None
     if cache_dir is not None:
-        digest = hashlib.sha256(repr(("dense",) + memo_key).encode()).hexdigest()[:16]
-        fold_cache = Path(cache_dir) / f"loopfold_{digest}.npz"
+        fold_cache = _cache_file(cache_dir, "loopfold", ("dense",) + memo_key)
     fft = _loop_fft(cfg)
     kin = cfg.kin
     # FFTLog plans; IR-cutoff modes truncate the input grid below k_ir and
@@ -165,7 +233,55 @@ def nonlinear_tables_numpy(cfg: EFTConfig, cache_dir=None) -> dict:
         s=s,
     )
     _TABLE_MEMO[memo_key] = tables
-    return dict(tables)
+    return nonlinear_tables_numpy(cfg, cache_dir, lowrank_tol)
+
+
+def lowrank_tables_numpy(cfg: EFTConfig, lowrank_tol: float = LOWRANK_TOL,
+                         cache_dir=None) -> dict:
+    """Host: the low-rank factors of the loop engine's folds at the spectral
+    cut ``lowrank_tol`` (float64), as the JAX package builds them:
+
+      q22/s22   — the P22 fold, whitened by the fiducial P-side coefficients;
+      qcf/scf   — the per-structure CF fold, whitened by the CF-side ones;
+      qcfg/scfg — the CF fold premixed over (channel, f-power) groups with
+                  the Legendre ℓ-weights (``bird.cf_group_map``) before the
+                  eigendecomposition: exact algebra before the cut, where the
+                  structures' tails cancel, so the stacked rank drops ~7x.
+
+    Memoized on (the table fields, the cut, ``LOWRANK_VERSION``); with
+    ``cache_dir`` also persisted under the same key, with the version inside
+    the file, so a cache of another cut or recipe is never reused."""
+    tol = float(lowrank_tol)
+    key = _memo_key(cfg) + ("lowrank", tol, LOWRANK_VERSION)
+    if key in _LOWRANK_MEMO:
+        return dict(_LOWRANK_MEMO[key])
+    nt = nonlinear_tables_numpy(cfg, cache_dir)
+    cache = _cache_file(cache_dir, "lowrank", key) if cache_dir is not None else None
+    factors = None
+    if cache is not None and cache.exists():
+        with np.load(cache) as z:
+            if ("lr_version" in z and int(z["lr_version"]) == LOWRANK_VERSION
+                    and all(k in z for k in _LOWRANK_KEYS)):
+                factors = {k: z[k] for k in _LOWRANK_KEYS}
+    if factors is None:
+        nc, icut, kin = nt["nc"], nt["kin_cut_index"], cfg.kin
+        # the plans built on the grid cut at k_ir read kin[icut:]
+        kin_pk = kin[icut:] if cfg.ir_cutoff in ("all", "loop") else kin
+        kin_cf = kin[icut:] if cfg.ir_cutoff in ("all", "resum") else kin
+        wh_pk = _whiten_dofs(_fid_coef_mag(nt["plan_pk"], kin_pk), nc)
+        wh_cf = _whiten_dofs(_fid_coef_mag(nt["plan_cf"], kin_cf), nc)
+        mcf_fold = nt["mcf_fold"]
+        q22, s22 = lowrank_factors(nt["m22_fold"], tol=tol, whiten=wh_pk)
+        qcf, scf = lowrank_factors(mcf_fold, tol=tol, whiten=wh_cf)
+        gmap = cf_group_map(cfg.nl, nt["n22"], nt["n13"])
+        mcf_grp = (gmap @ mcf_fold.reshape(gmap.shape[1], -1)).reshape(
+            (gmap.shape[0],) + mcf_fold.shape[1:])
+        qcfg, scfg = lowrank_factors(mcf_grp, tol=tol, whiten=wh_cf)
+        factors = dict(q22=q22, s22=s22, qcf=qcf, scf=scf, qcfg=qcfg, scfg=scfg)
+        if cache is not None:
+            atomic_save_npz(cache, lr_version=np.array(LOWRANK_VERSION), **factors)
+    _LOWRANK_MEMO[key] = factors
+    return dict(factors)
 
 
 def nonlinear_tables_to(tables: dict, device, dtype) -> dict:
@@ -178,8 +294,10 @@ def nonlinear_tables_to(tables: dict, device, dtype) -> dict:
     return out
 
 
-def build_nonlinear_tables(cfg: EFTConfig, device, dtype, cache_dir=None) -> dict:
-    return nonlinear_tables_to(nonlinear_tables_numpy(cfg, cache_dir), device, dtype)
+def build_nonlinear_tables(cfg: EFTConfig, device, dtype, cache_dir=None,
+                           lowrank_tol=None) -> dict:
+    return nonlinear_tables_to(nonlinear_tables_numpy(cfg, cache_dir, lowrank_tol),
+                               device, dtype)
 
 
 def kernel_layout(nt: dict, key: str):
@@ -219,26 +337,42 @@ def _coefs(nt: dict, cfg: EFTConfig, plin_kin):
     return coef_pk, coef_cf
 
 
-def nonlinear_pscf(nt: dict, cfg: EFTConfig, plin_kin, quadform: str = "kernel"):
-    """Loop power spectra and correlation functions (dense quadratic forms).
+def nonlinear_pscf(nt: dict, cfg: EFTConfig, plin_kin, quadform: str = "kernel",
+                   cf_premix: bool = True):
+    """Loop power spectra and correlation functions.
 
     nt : tables from :func:`build_nonlinear_tables`, on ``plin_kin``'s device
     plin_kin : (W, nkin) linear power spectrum on cfg.kin
     quadform : "kernel" — the public op ``quad_form_real`` (fused CUDA kernel
         on the card, its plain version on the CPU); "plain" — the two-einsum
-        plain version on whatever device, as an independent reference.
+        plain version on whatever device, as an independent reference;
+        "lowrank" — ``quad_form_lowrank`` on the tables' ``lowrank`` factors
+        (the JAX package's float32 route; tables built with ``lowrank_tol``).
+    cf_premix : with "lowrank", contract the CF loop on the (channel,
+        f-power)-premixed factors and return ``cloop_grp`` in place of
+        ``c22``/``c13`` (the JAX package's ``EFTPIPE_TPU_CF_PREMIX``).
 
     Returns a dict with
       p22 : (W, 28, nk), p13_kernel : (W, 10, nk)
       c11, cct, cct_nnlo : (W, nl, ns)
-      c22 : (W, nl, 28, ns), c13 : (W, nl, 10, ns)
+      c22 : (W, nl, 28, ns), c13 : (W, nl, 10, ns)   — or, premixed,
+      cloop_grp : (W, G, nl, ns), G = 22 (channel, f-power) groups
 
     Mirrors ``NonLinear.PsCf`` + the make* contractions
     (pybird.py:1074-1171); upstream FFTLog window = 0.2.
     """
-    if quadform not in ("kernel", "plain"):
-        raise ValueError(f"quadform must be 'kernel' or 'plain', got {quadform!r}")
-    if quadform == "kernel":
+    if quadform not in QUADFORMS:
+        raise ValueError(f"quadform must be one of {QUADFORMS}, got {quadform!r}")
+    if quadform == "lowrank":
+        lr = nt.get("lowrank")
+        if lr is None:
+            raise ValueError("quadform='lowrank' needs tables built with lowrank_tol "
+                             "(build_nonlinear_tables(..., lowrank_tol=...))")
+
+        def qf(w, key):
+            which = "22" if key == "m22" else "cf"
+            return quad_form_lowrank(w, lr["q" + which], lr["s" + which])
+    elif quadform == "kernel":
         def qf(w, key):
             return quad_form_real(w, nt[key + "_fold"], kernel_layout(nt, key))
     else:
@@ -261,13 +395,20 @@ def nonlinear_pscf(nt: dict, cfg: EFTConfig, plin_kin, quadform: str = "kernel")
     w_cf = herm_w(coef_cf, nt["spow_half"], nc)
     n22b, n13b = nt["n22"], nt["n13"]
     nl = nt["a11"][0].shape[1]
+    out = dict(p22=p22, p13_kernel=p13_kernel, c11=c11, cct=cct, cct_nnlo=cct_nnlo)
+    if quadform == "lowrank" and cf_premix:
+        # the premixed CF loop: bird.assemble_bird applies f^p and the
+        # group→channel one-hot in place of the l22/l13 regrouping
+        cgrp = quad_form_lowrank(w_cf, lr["qcfg"], lr["scfg"])  # (W, G·nl, ns)
+        gnl = lr["scfg"].shape[0]
+        out["cloop_grp"] = cgrp.reshape(cgrp.shape[:-2] + (gnl // nl, nl, cgrp.shape[-1]))
+        return out
     c_all = qf(w_cf, "mcf")  # (W, (28+10)·nl, ns)
     ns_ = c_all.shape[-1]
     lead = c_all.shape[:-2]
-    c22 = c_all[..., : n22b * nl, :].reshape(lead + (n22b, nl, ns_)).transpose(-3, -2)
-    c13 = c_all[..., n22b * nl:, :].reshape(lead + (n13b, nl, ns_)).transpose(-3, -2)
-    return dict(p22=p22, p13_kernel=p13_kernel, c11=c11, cct=cct,
-                cct_nnlo=cct_nnlo, c22=c22, c13=c13)
+    out["c22"] = c_all[..., : n22b * nl, :].reshape(lead + (n22b, nl, ns_)).transpose(-3, -2)
+    out["c13"] = c_all[..., n22b * nl:, :].reshape(lead + (n13b, nl, ns_)).transpose(-3, -2)
+    return out
 
 
 def cf_loop_complex(nt: dict, cfg: EFTConfig, plin_kin, mcf_complex, ell_index: int = 0,

@@ -18,7 +18,7 @@ from typing import Any, NamedTuple
 
 from .. import resolve_device
 from .config import EFTConfig
-from .nonlinear import build_nonlinear_tables, nonlinear_pscf
+from .nonlinear import LOWRANK_TOL, QUADFORMS, build_nonlinear_tables, nonlinear_pscf
 from .bird import build_bird_tables, assemble_bird, BirdState
 from .resum import build_resum_tables, resum_ps
 from .ap import build_ap_tables, ap_transform
@@ -60,6 +60,7 @@ class TracerPipeline:
     device: Any = None
     dtype: Any = None
     quadform: str = "kernel"
+    cf_premix: bool = True
     frozen: dict | None = None
 
     @classmethod
@@ -78,17 +79,26 @@ class TracerPipeline:
         device=None,
         dtype=torch.float64,
         quadform: str = "kernel",
+        lowrank_tol: float = LOWRANK_TOL,
+        cf_premix: bool = True,
     ) -> "TracerPipeline":
         """Build all Phase-A tables and move them to ``device`` (default: the
-        card; raises when there is none).  ``quadform`` selects the dense
-        quadratic forms' route, see :func:`..nonlinear.nonlinear_pscf`.
+        card; raises when there is none).  ``quadform`` selects the
+        quadratic forms' route ("kernel", "plain" or "lowrank"), see
+        :func:`..nonlinear.nonlinear_pscf`; "lowrank" builds the factors at
+        the cut ``lowrank_tol`` and contracts the CF loop on the premixed
+        factors unless ``cf_premix`` is False.
         ``window``/``window_matrix``/``icc``/``fiber`` are the keyword
         arguments of the matching host builders; the icc tables are coupled
         into the window.  ``window["builder"]``, a dotted path, names another
         host window builder with the signature and result of
         :func:`..window.build_window_tables` (upstream theory.py:62-72)."""
+        if quadform not in QUADFORMS:
+            raise ValueError(f"quadform must be one of {QUADFORMS}, got {quadform!r}")
         device = resolve_device(device)
-        nt = build_nonlinear_tables(cfg, device, dtype, cache_dir=cache_dir)
+        nt = build_nonlinear_tables(
+            cfg, device, dtype, cache_dir=cache_dir,
+            lowrank_tol=lowrank_tol if quadform == "lowrank" else None)
         bt = build_bird_tables(cfg, device, dtype)
         rt = None
         if with_irresum:
@@ -115,7 +125,7 @@ class TracerPipeline:
             ft = fiber_tables_to(build_fiber_tables(cfg, **fiber), device, dtype)
         return cls(cfg=cfg, nt=nt, bt=bt, rt=rt, at=at, wt=wt, wmt=wmt, ft=ft,
                    with_rsd=with_rsd, zeff=zeff, device=device, dtype=dtype,
-                   quadform=quadform)
+                   quadform=quadform, cf_premix=cf_premix)
 
     def freeze_template(self, plin) -> "TracerPipeline":
         """Template-fit fast path (upstream ``LinearPowerFile`` mode,
@@ -126,7 +136,8 @@ class TracerPipeline:
         :meth:`compute_bird` then runs only the f- and AP-dependent work."""
         p = torch.as_tensor(np.asarray(plin), dtype=self.dtype, device=self.device)[None]
         with torch.no_grad(), stage_precision("nonlinear"):
-            frozen = {"nl_out": nonlinear_pscf(self.nt, self.cfg, p, quadform=self.quadform)}
+            frozen = {"nl_out": nonlinear_pscf(self.nt, self.cfg, p, quadform=self.quadform,
+                                               cf_premix=self.cf_premix)}
             if self.rt is not None:
                 frozen["xpyp"] = _xpyp(self.rt, *ir_filters(self.rt, p))
         self.frozen = frozen
@@ -148,7 +159,8 @@ class TracerPipeline:
             if self.frozen is not None:
                 out = {k: batch(v) for k, v in self.frozen["nl_out"].items()}
             else:
-                out = nonlinear_pscf(self.nt, cfg, plin, quadform=self.quadform)
+                out = nonlinear_pscf(self.nt, cfg, plin, quadform=self.quadform,
+                                     cf_premix=self.cf_premix)
             bird = assemble_bird(self.bt, cfg, out, plin, f)
         snaps["nonlinear"] = bird
         if stop_after == "nonlinear":

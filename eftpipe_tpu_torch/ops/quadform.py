@@ -29,12 +29,19 @@ here                        ``eftpipe_tpu/ops/pallas_kernels.py``
 ``quad_form_real``          ``quad_form_real`` (+ ``qf_real_grouped``)
 ``cf_contract``             ``cf_contract`` / ``cf_contract_pallas``
 ``quad_form``               ``quad_form``
+``lowrank_factors``         ``lowrank_factors``
+``quad_form_lowrank``       ``quad_form_lowrank`` / ``qf_lowrank_xla``
 ==========================  =============================================
 
 The walker axis is explicit: every op takes ``(W, N, S)`` (any leading axes
 are flattened into W); the JAX module's ``custom_vmap`` dispatch and its
-walker-grouped layouts have no counterpart.  The low-rank forms
-(``lowrank_factors``, ``quad_form_lowrank``) are not part of this module yet.
+walker-grouped layouts have no counterpart.
+
+The low-rank form (``lowrank_factors`` on the host, ``quad_form_lowrank``
+per evaluation) is the JAX package's float32 route: the truncated
+eigenbasis of sym(M), two products with an elementwise square between.  It
+was two XLA einsums there, not a Pallas kernel, and is two ``torch.matmul``
+here on either device, differentiated by autograd.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches a kernel or raises.  float32 runs on the
@@ -438,3 +445,80 @@ def cf_contract(zr, zi, mr, mi, prepared=None):
 
 
 quad_form = cf_contract
+
+
+# ---------------------------------------------------------------------------
+# the low-rank (truncated eigenbasis) real quadratic form
+# ---------------------------------------------------------------------------
+#
+# Only the symmetric part of M̃ enters wᵀ M̃ w, and the folded loop matrices are
+# numerically low-rank.  With sym(M̃_b) = Σ_r λ_r u_r u_rᵀ and the rows
+# q_r = √|λ_r|·u_r of all matrices stacked into Q (R, N):
+#
+#     Y = Q w   (R, S),      C_b = Σ_{r∈b} sign(λ_r) Y_r² = (S Y∘Y)_b
+#
+# An approximation (the truncation), taken only when a builder is asked for
+# quadform="lowrank" (models/nonlinear.py).  Its products run in IEEE float32
+# on the card (the package switches TF32 off): C sums squares of both signs,
+# and a TF32 product (10-bit mantissa, ~5e-4 relative) would leave the 1e-4
+# multipole budget before any cancellation.
+
+
+def lowrank_factors(m_fold: np.ndarray, tol: float = 1e-8, pad_to: int = 128,
+                    whiten: np.ndarray | None = None):
+    """Host: eigendecompose sym(M̃) per matrix, truncate at ``tol`` relative
+    to each matrix's spectral radius, and stack (a copy of the JAX package's
+    ``lowrank_factors``, operation for operation, so that the factors are
+    bitwise equal).
+
+    ``whiten`` (optional, (N,) positive): eigendecompose D·sym(M̃)·D with
+    D = diag(whiten) and unscale the kept rows by D⁻¹, so that the cut ranks
+    eigenpairs by their contribution to the output for inputs w of the
+    typical per-dof magnitude ``whiten``; the kept subspace is exact.
+
+    Returns (q, smat): q (R, N) float64 rows √|λ|·uᵀ (·D⁻¹ when whitened),
+    smat (BL, R) float64 with sign(λ_r) at (owner(r), r) and 0 elsewhere,
+    R zero-padded to a multiple of ``pad_to``."""
+    ms = 0.5 * (m_fold + np.swapaxes(m_fold, -1, -2))
+    if whiten is not None:
+        ms = ms * (whiten[:, None] * whiten[None, :])
+    lam, u = np.linalg.eigh(ms)            # (BL, N), (BL, N, N) columns
+    alam = np.abs(lam)
+    mask = alam > tol * alam.max(axis=-1, keepdims=True)
+    q_all = np.swapaxes(u, -1, -2) * np.sqrt(alam)[..., None]  # (BL, N, N) rows
+    q = q_all[mask]                         # (R, N)
+    if whiten is not None:
+        q = q / whiten[None, :]
+    owner = np.nonzero(mask)[0]             # (R,)
+    sgn = np.sign(lam[mask])
+    r = q.shape[0]
+    rp = -(-r // pad_to) * pad_to
+    if rp != r:
+        q = np.concatenate([q, np.zeros((rp - r, q.shape[1]))], axis=0)
+    smat = np.zeros((m_fold.shape[0], rp))
+    smat[owner, np.arange(r)] = sgn
+    return q, smat
+
+
+def lowrank_rank(smat) -> int:
+    """The number of kept eigenpairs of factors (q, smat), padding excluded."""
+    return int((smat != 0).sum())
+
+
+def quad_form_lowrank(w, q, smat):
+    """smat @ (Q w)∘(Q w): w (..., N, S), q (R, N), smat (BL, R) →
+    (..., BL, S), the truncated-eigenbasis form of :func:`quad_form_real`.
+
+    Two matmuls on whatever device w lies on, chunked over the leading
+    (walker) axes so that Y stays under 1 GiB: the unpremixed CF factors
+    (R ≈ 5000) at W = 1024 would otherwise hold ~1.6 GB of Y in float32.
+    Autograd differentiates it, twice where asked (``laplace_cov``)."""
+    lead = w.shape[:-2]
+    w3 = w.reshape((-1,) + tuple(w.shape[-2:]))
+    per = q.shape[0] * w.shape[-1] * w.element_size()
+    outs = []
+    for a, b in _walker_chunks(w3.shape[0], per):
+        y = torch.matmul(q, w3[a:b])          # (w, R, S)
+        outs.append(torch.matmul(smat, y * y))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+    return out.reshape(tuple(lead) + tuple(out.shape[-2:]))

@@ -145,6 +145,28 @@ def test_default_flagship_float32_within_budget(default_models, tmp_path):
     np.testing.assert_allclose(again.like.data_vector, tmodel.like.data_vector, rtol=1e-12)
 
 
+def test_flagship_ap_quadrature_option(models, tmp_path):
+    """``ap_quadrature="gauss_legendre"`` puts float64 on the float32 µ nodes
+    (float32 models agree bitwise with their default), and the mock data stay
+    the default float64 model's, also when the option's model writes them."""
+    _, tmodel, twork = models
+    thetas = seeded_points(tmodel.theta0)
+    gl64 = tflag.build_flagship(twork, dtype=torch.float64, device="cpu",
+                                ap_quadrature="gauss_legendre", **LITE)
+    fresh = tflag.build_flagship(tmp_path, dtype=torch.float64, device="cpu",
+                                 ap_quadrature="gauss_legendre", **LITE)
+    np.testing.assert_allclose(fresh.like.data_vector, tmodel.like.data_vector, rtol=1e-12)
+    for name, spec in gl64.like.tracers.items():
+        at = spec.pipeline.at
+        np.testing.assert_array_equal(at["mu"].numpy(), at["mu_gl"].numpy())
+        assert tmodel.like.tracers[name].pipeline.at["mu"].shape != at["mu"].shape
+    d = np.abs(gl64.logp(thetas).numpy() - tmodel.logp(thetas).numpy())
+    assert 0 < d.max() < 0.02, d
+    m32 = [tflag.build_flagship(twork, dtype=torch.float32, device="cpu", ap_quadrature=q, **LITE)
+           for q in ("by_dtype", "gauss_legendre")]
+    np.testing.assert_array_equal(m32[0].logp(thetas).numpy(), m32[1].logp(thetas).numpy())
+
+
 def test_flagship_static_state_matches(models):
     jmodel, tmodel, _ = models
     assert tmodel.param_names == jmodel.param_names

@@ -34,6 +34,7 @@ _MODULES = [
     "eftpipe_tpu_torch.api.orchestrate", "eftpipe_tpu_torch.analysis",
     "eftpipe_tpu_torch.analysis.chains", "eftpipe_tpu_torch.analysis.multipole",
     "eftpipe_tpu_torch.analysis.bestfit", "eftpipe_tpu_torch.cli",
+    "eftpipe_tpu_torch.compat", "eftpipe_tpu_torch.compat.cobaya",
 ]
 
 
@@ -63,7 +64,8 @@ def test_no_jax_import_statement_in_the_port_sources():
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|eftpipe_tpu)(\s|\.|$)", re.M)
-    files = list((ROOT / "eftpipe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list((ROOT / "eftpipe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                 ROOT / "hmc_flagship.py"]
     assert len(files) > 20
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
@@ -82,6 +84,27 @@ def test_chip_smoke_fails_without_a_card_and_imports_no_jax():
         "import sys, runpy\n"
         "try:\n"
         "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "assert 'jax' not in sys.modules and 'eftpipe_tpu' not in sys.modules\n"
+        "print('clean')\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+
+
+def test_hmc_flagship_fails_without_a_card():
+    """The HMC check script needs the card: without one it exits non-zero,
+    prints no result and never imports jax."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    res = subprocess.run([sys.executable, str(ROOT / "hmc_flagship.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "hmc_flagship" not in res.stdout
+    code = (
+        "import sys, runpy\n"
+        "try:\n"
+        "    runpy.run_path('hmc_flagship.py', run_name='not_main')\n"
         "except SystemExit:\n"
         "    pass\n"
         "assert 'jax' not in sys.modules and 'eftpipe_tpu' not in sys.modules\n"
@@ -125,12 +148,32 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
 ])
 def test_unported_options_raise_not_implemented(tmp_path, kwargs, match):
     """What the port still leaves out raises, naming its ROADMAP item: the
-    trained-transfer emulator provider and the Einstein-Boltzmann solver
-    provider (the survey window, the solver emulator, the dotted
-    window-builder extension point and cross spectra, once listed here, are
-    ported)."""
+    Einstein-Boltzmann solver provider (A8).  The trained-transfer emulator
+    provider (A7) is ported: it builds from a ``TransferEmulator.save``
+    file and gives the JAX package's provider's inputs (float64, rtol
+    1e-12); so are the survey window, the solver emulator, the dotted
+    window-builder extension point and cross spectra, once listed here."""
     from eftpipe_tpu_torch.api.orchestrate import build_provider
     from eftpipe_tpu_torch.models.config import EFTConfig
 
+    cfg = EFTConfig(nfft_loop=32, nkin=60)
+    if match == "A7":
+        import jax
+        import jax.numpy as jnp
+        import numpy as np
+        from eftpipe_tpu.api.orchestrate import build_provider as jbuild
+        from eftpipe_tpu.models.config import EFTConfig as JConfig
+        from test_torch_compat import emulator_params, write_transfer_emulator
+
+        bcfg = dict(kwargs["boltzmann"], path=str(write_transfer_emulator(tmp_path / "e.npz")),
+                    om_fid=0.3)
+        ours = build_provider(bcfg, cfg, 0.7)
+        theirs = jbuild(bcfg, JConfig(nfft_loop=32, nkin=60), 0.7)
+        params = emulator_params(seed=8)
+        got = ours.inputs({k: torch.as_tensor(v) for k, v in params.items()})
+        want = jax.vmap(theirs.inputs)({k: jnp.asarray(v) for k, v in params.items()})
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        build_provider(kwargs["boltzmann"], EFTConfig(nfft_loop=32, nkin=60), 0.7)
+        build_provider(kwargs["boltzmann"], cfg, 0.7)

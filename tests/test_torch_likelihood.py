@@ -260,7 +260,8 @@ def two_tracer(tmp_path_factory):
 def _jax_eval(jl, inputs, params, fn):
     ji = {n: jpipe.CosmoInputs(**{k: jnp.asarray(v) for k, v in x.items()}) for n, x in inputs.items()}
     jp = {k: jnp.asarray(v) for k, v in params.items()}
-    return jax.vmap(lambda i, p: fn(jl, i, p))(ji, jp)
+    # jitted: op-by-op eager dispatch of the same graph is several times slower
+    return jax.jit(jax.vmap(lambda i, p: fn(jl, i, p)))(ji, jp)
 
 
 def _torch_inputs(inputs, params):

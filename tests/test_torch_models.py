@@ -227,17 +227,28 @@ def test_unported_stages_raise(option):
 
 
 def test_chained_and_premix_raise(both):
-    """Chained products and the frozen template are ported (their parity
-    tests are in ``test_torch_orchestrate.py``); the low-rank premixed CF
-    loop still raises, naming its ROADMAP item."""
+    """Chained products, the frozen template and the premixed CF loop are
+    ported (their parity tests: ``test_torch_orchestrate.py``,
+    ``test_torch_lowrank.py``): the (channel, f-power)-premixed loop
+    ``cloop_grp`` of a dense ``nonlinear_pscf`` output assembles as in the
+    JAX package (float64, rtol 1e-10)."""
+    from eftpipe_tpu.models import bird as jbird
+
     jp, tp, x = both
     assert tp.product_info(chained=True)[0] == jp.product_info(chained=True)[0] \
         == [2 * i for i in range(tp.cfg.no - 1)]
     frozen = dataclasses.replace(tp).freeze_template(x["plin"][0])
     assert frozen.frozen["nl_out"]["p22"].shape[0] == 1 and tp.frozen is None
-    with pytest.raises(NotImplementedError, match="low-rank"):
-        tbird.assemble_bird(tp.bt, tp.cfg, {"cloop_grp": None}, torch.as_tensor(x["plin"]),
-                            torch.as_tensor(x["f"]))
+    out = tnl.nonlinear_pscf(tp.nt, tp.cfg, torch.as_tensor(x["plin"]))
+    grp = np.random.default_rng(5).standard_normal((W, 22, tp.cfg.nl, tp.cfg.ns))
+    premixed = {k: v.numpy() for k, v in out.items() if k not in ("c22", "c13")}
+    premixed["cloop_grp"] = grp
+    want = jax.vmap(lambda o, p, f: jbird.assemble_bird(jp.bt, jp.cfg, o, p, f))(
+        {k: jnp.asarray(v) for k, v in premixed.items()}, jnp.asarray(x["plin"]),
+        jnp.asarray(x["f"]))
+    got = tbird.assemble_bird(tp.bt, tp.cfg, {k: torch.as_tensor(v) for k, v in premixed.items()},
+                              torch.as_tensor(x["plin"]), torch.as_tensor(x["f"]))
+    assert_birds_close(got, want)
 
 
 def test_ap_and_binning_helpers_match_jax():

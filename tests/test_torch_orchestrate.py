@@ -11,6 +11,7 @@ goldens' own (default) widths, in the port only.  JAX jits ``vmap`` of its
 ``logp`` at these small widths (seconds; op-by-op eager dispatch of the same
 graph takes six times longer), never a production posterior."""
 
+import copy
 import dataclasses
 import functools
 import json
@@ -540,16 +541,43 @@ def test_analysis_from_numpy_carries_jax_state(template):
     np.testing.assert_array_equal(tan.like.invcov, carried.like.invcov)
 
 
-def test_mesh_and_unported_providers_raise(template):
-    _, _, tan, _, _, _ = template
+def test_mesh_and_unported_providers_raise(template, tmp_path):
+    """``mesh=`` (A13) and the solver provider (A8) raise naming their
+    items; the ``emulator`` provider (A7, once listed here) builds from a
+    ``TransferEmulator.save`` file and a config-built analysis on it gives
+    the JAX analysis' ``logp`` (float64, 1e-8)."""
+    from test_torch_compat import write_transfer_emulator
+
+    _, info, tan, _, _, _ = template
     with pytest.raises(NotImplementedError, match="A13"):
         tan.run_mcmc(nwalkers=8, max_steps=1, mesh=object())
     cfg = TConfig(**NARROW)
-    for name, item in (("emulator", "A7"), ("solver", "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            torch_orch.build_provider({"name": name}, cfg, 0.7)
+    with pytest.raises(NotImplementedError, match="A8"):
+        torch_orch.build_provider({"name": "solver"}, cfg, 0.7)
     with pytest.raises(ValueError, match="unknown boltzmann"):
         torch_orch.build_provider({"name": "nope"}, cfg, 0.7)
+
+    emu = {"name": "emulator", "path": str(write_transfer_emulator(tmp_path / "emu.npz")),
+           "om_fid": 0.31}
+    info = copy.deepcopy(info)
+    info["theory"]["tracers"] = {"LRG": dict(info["theory"]["tracers"]["LRG"], boltzmann=emu)}
+    np.savetxt(tmp_path / "cov.txt", np.eye(2 * KOUT.size) * 25.0)
+    info["likelihood"] = dict(info["likelihood"], tracers=["LRG"], cov=str(tmp_path / "cov.txt"),
+                              data={"LRG": info["likelihood"]["data"]["LRG"]},
+                              marg={"LRG_": info["likelihood"]["marg"]["LRG_"]})
+    info["params"] = {
+        "omega_b": 0.02237, "ns": 0.9649, "ln10As": 3.044,
+        "omega_cdm": {"prior": {"min": 0.10, "max": 0.14}, "ref": 0.12},
+        "h": {"prior": {"min": 0.62, "max": 0.72}, "ref": 0.6777},
+        "LRG_b1": {"prior": {"min": 1.0, "max": 4.0}, "ref": 2.2},
+        "LRG_b2": 0.8, "LRG_b4": 0.8}
+    ours = torch_orch.Analysis.from_config(info, device="cpu")
+    assert type(ours.providers["LRG"]).__name__ == "EmulatorProvider"
+    theirs = jorch.Analysis.from_config(info)
+    thetas = seeded(ours.space.theta0(), 4, seed=13, rel=1e-3)
+    want = np.asarray(jax.jit(jax.vmap(theirs.logp))(jnp.asarray(thetas)))
+    assert np.all(np.isfinite(want))
+    close(ours.logp(thetas).numpy(), want, rtol=1e-8, name="emulator logp")
 
 
 # ----------------------------------------------------------------------
