@@ -4,18 +4,21 @@
     python3 chip_smoke.py            # all phases, needs one CUDA device
     python3 chip_smoke.py --quick    # build + kernel checks at small depth only
     python3 chip_smoke.py --out DIR  # also write chip_smoke.json and ptxas.log to DIR
+    python3 chip_smoke.py --against DIR  # also time DIR/quadform.cu's float64 kernels
 
 Phases, each printing one JSON line:
 
 1. ``device``  — the card's name and power limit (``nvidia-smi``), versions.
 2. ``build``   — compiles ``eftpipe_tpu_torch/csrc/*.cu`` with ``nvcc`` for
    sm_90a into ``build/eftpipe_tpu_torch/`` (seconds, registers and spills
-   per source).
+   per source, and its tensor-core instructions: DMMA and HGMMA in the SASS).
 3. ``kernel_checks`` — every CUDA kernel against its plain PyTorch version in
    float64 on the same inputs: float32 (``quadform_tc.cu``, 3xTF32 on the
    tensor cores) at the flagship's shapes and at a small ragged shape,
-   float64 (``quadform.cu``) at the small shape (separates an indexing fault
-   from rounding).  The matrices' kernel layout is made once per shape, as
+   float64 (``quadform.cu``, the float64 tensor cores) at small ragged
+   shapes (W·S no multiple of the column tiles; separates an indexing fault
+   from rounding), at the float64 analysis' shapes and, for ``cf_half``, at
+   the fold check's shape.  The matrices' kernel layout is made once per shape, as
    the model does it for its tables and for the fold check's complex
    matrices, and the timed calls reuse it (``prepared``, ``ms``); ``fly_ms``
    times the same calls with the layout made in each.  Times by
@@ -24,7 +27,9 @@ Phases, each printing one JSON line:
    default widths, survey window, solver-emulator cosmology, float32, dense
    quadratic forms through the kernels) on the card, evaluates ``logp`` at 64
    seeded points, compares with the port's float64 plain path (|dlogp| <
-   0.02), runs the complex A/B check of the Hermitian fold, then times
+   0.02), runs the complex A/B check of the Hermitian fold in float32 and,
+   on the float64 model, in float64 (the float64 kernels; relative
+   difference < 1e-9), then times
    batches of 1024 walkers and the stage prefixes.  The kernels' launch
    counters are set to 0 just before and read just after.  One more batch is
    traced with ``torch.profiler`` (``profile`` line: device time by kernel,
@@ -81,12 +86,21 @@ Phases, each printing one JSON line:
    config (``fixed_template``, LRG) whose ``qf_real`` launches happen at
    build (``freeze_template``) and never in ``logp``; the same three-tracer
    analysis in float64 through the float64 kernels (the CLI's
-   ``--dtype float64``), its ``logp`` timed at W=1024; and a float32 LRG
+   ``--dtype float64``), held against the float64 plain path on the 64
+   seeded points (|dlogp| <= 1e-6: both float64, only the order of the sums
+   differs) and its ``logp`` timed at W=1024; and a float32 LRG
    analysis on the ``emulator`` provider (a transfer-function MLP file
    written here with NumPy in the JAX package's ``TransferEmulator.save``
    layout, seeded weights) against its float64 plain path (|dlogp| < 0.02).
-10. ``kernels`` line (launches by path), the card's ``nvidia-smi`` line, and
-   the final ``{"ok": true, "device": {...}}`` line.
+With ``--against DIR`` the ``against`` line follows ``kernel_checks``: another
+``quadform.cu`` with the same C interface (for example the parent commit's,
+copied into a git-ignored directory) is built there and its float64 kernels
+are checked and timed beside this tree's at the timed float64 shapes, in
+turns (theirs, ours, ours, theirs) on the same inputs.
+
+10. ``kernels`` line (launches by path; every kernel instance, float32 and
+   float64 ``qf_real`` and ``cf_half``, must appear), the card's
+   ``nvidia-smi`` line, and the final ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises: the exit code is then non-zero and no final line is
 printed.  Imports nothing but the port (``eftpipe_tpu_torch``), torch, numpy.
@@ -140,6 +154,10 @@ TF32_FLOPS = 495e12
 PEAK_NAME = {torch.float32: "3xTF32: three TF32 tensor-core passes at 495 TFLOP/s",
              torch.float64: "67 TFLOP/s float64 on the tensor cores"}
 LOGP_ABS_BUDGET = 0.02
+# float64 kernels against the float64 plain path: the same arithmetic in
+# another order of summation
+LOGP64_ABS_BUDGET = 1e-6
+FOLD64_REL_BUDGET = 1e-9
 MULTIPOLE_REL_BUDGET = 1e-4  # tests/test_accuracy_budget.py
 CHUNK_TRIALS = (256, 512)  # walker chunks tried, beside the whole batch
 LITE_BATCH = 256
@@ -183,6 +201,17 @@ def ptxas_summary(log: str) -> list:
         elif cur is not None and "Used " in line and " registers" in line:
             cur["registers"] = int(line.split("Used ")[1].split(" registers")[0])
     return rows
+
+
+def sass_counts(lib_path: str) -> dict:
+    """Tensor-core instructions in a built library's SASS (``cuobjdump -sass``
+    beside ``nvcc``): DMMA (float64 ``mma.sync``) and HGMMA (``wgmma``)."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return dict(note="not measured: no cuobjdump beside nvcc")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=120).stdout
+    return {op: sum(1 for line in sass.splitlines() if op in line) for op in ("DMMA", "HGMMA")}
 
 
 def nvidia_smi_line() -> str:
@@ -303,6 +332,59 @@ def check_kernel(kernel: str, dtype, nw: int, n: int, s: int, bl: int,
     if not ok:
         raise SystemExit(f"chip_smoke: kernel check failed: {json.dumps(row)}")
     return row
+
+
+def against_rows(src_dir: str, shapes, gen: torch.Generator) -> list:
+    """Build ``src_dir/quadform.cu`` (float64 C interface of this tree's
+    ``csrc/quadform.cu``) and time its kernels beside this tree's on the same
+    inputs, in turns; both are checked against the float64 plain version."""
+    import ctypes
+
+    lib_path = os.path.join(src_dir, "libquadform_against.so")
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib_path,
+                    os.path.join(src_dir, "quadform.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(lib_path)
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.eft_qf_real_f64.argtypes = [ptr] * 3 + [i] * 5 + [ptr]
+    lib.eft_cf_half_f64.argtypes = [ptr] * 5 + [i] * 5 + [ptr]
+    lib.eft_quadform_pad.restype = i
+    pad = lib.eft_quadform_pad()
+    rows = []
+    for kernel, nw, n, s, bl in shapes:
+        dev = torch.device("cuda")
+        m = torch.randn(bl, n, n, generator=gen, device=dev, dtype=torch.float64)
+        ours_lay, their_lay = qf.kernel_matrices(m), qf.tril_fold(m, pad)
+        nz = 1 if kernel == "qf_real" else 2
+        zs = [[torch.randn(nw, n, s, generator=gen, device=dev, dtype=torch.float64)
+               for _ in range(nz)] for _ in range(3)]
+        stream = lambda: torch.cuda.current_stream().cuda_stream
+
+        def theirs(z):
+            outs = [torch.empty((nw, bl, s), dtype=torch.float64, device=dev) for _ in range(nz)]
+            if kernel == "qf_real":
+                code = lib.eft_qf_real_f64(z[0].data_ptr(), their_lay.data_ptr(), outs[0].data_ptr(),
+                                           nw, n, their_lay.shape[-1], s, bl, stream())
+            else:
+                code = lib.eft_cf_half_f64(their_lay.data_ptr(), z[0].data_ptr(), z[1].data_ptr(),
+                                           outs[0].data_ptr(), outs[1].data_ptr(),
+                                           nw, n, their_lay.shape[-1], s, bl, stream())
+            if code != 0:
+                raise SystemExit(f"chip_smoke: --against kernel failed to launch ({code})")
+            return outs
+
+        if kernel == "qf_real":
+            ours = lambda z: [qf.qf_real_cuda(z[0], m, ours_lay)]
+            ref = [qf.qf_real_plain(zs[0][0], m)]
+        else:
+            ours = lambda z: list(qf.cf_half_cuda(m, z[0], z[1], ours_lay))
+            ref = list(qf.cf_half_plain(m, zs[0][0], zs[0][1]))
+        errs = {name: max(float((g - r).abs().max()) for g, r in zip(fn(zs[0]), ref))
+                for name, fn in (("theirs", theirs), ("ours", ours))}
+        turns = [event_ms(fn, zs) for fn in (theirs, ours, ours, theirs)]
+        rows.append(dict(kernel=kernel, dtype="f64", W=nw, N=n, S=s, BL=bl, against=src_dir,
+                         their_pad=pad, their_ms=[turns[0], turns[3]], ms=[turns[1], turns[2]],
+                         their_max_abs_err=errs["theirs"], max_abs_err=errs["ours"]))
+    return rows
 
 
 def accuracy_batch(theta0: np.ndarray) -> np.ndarray:
@@ -426,6 +508,9 @@ def flagship_path(phase: str, model_name: str, build_kw: dict, nb: int, n_timed:
         lp = model.logp(thetas)
         if full:
             ab_ref, ab_fold = model.fold_ab_check(thetas, tracer="LRG", ell_index=0)
+            # the same on the float64 model: its fold check runs through the
+            # float64 kernels (cf_half twice, qf_real once)
+            ab64_ref, ab64_fold = ref_model.fold_ab_check(thetas, tracer="LRG", ell_index=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         timed = [model.logp(b, chunk=chunk) for b in batches[:n_timed]]
@@ -463,12 +548,14 @@ def flagship_path(phase: str, model_name: str, build_kw: dict, nb: int, n_timed:
 
     lp_np = lp.double().cpu().numpy()
     dlogp = float(np.abs(lp_np - lp_ref).max())
-    expected_qf = 4 + 4 * n_timed * nchunks + (1 if full else 0)
-    expected_cf = 2 if full else 0
+    expected_qf = 4 + 4 * n_timed * nchunks + (2 if full else 0)
+    expected_cf = 4 if full else 0
     finite = bool(np.isfinite(lp_np).all() and np.isfinite(lp_ref).all()
                   and all(torch.isfinite(t).all() for t in timed))
     if full:
         extra["fold_ab_rel_err"] = float((ab_ref - ab_fold).abs().max() / ab_fold.abs().max())
+        extra["fold_ab_rel_err_float64"] = float(
+            (ab64_ref - ab64_fold).abs().max() / ab64_fold.abs().max())
     lines.append(emit(
         phase, model=model_name, dtype="float32", reference="float64 plain path on the card",
         phase_a_seconds=phase_a_s, phase_a_reference_seconds=phase_a_ref_s,
@@ -486,6 +573,9 @@ def flagship_path(phase: str, model_name: str, build_kw: dict, nb: int, n_timed:
     if full and extra["fold_ab_rel_err"] > 2e-3:
         raise SystemExit(f"chip_smoke: folded and complex CF loops disagree "
                          f"({extra['fold_ab_rel_err']})")
+    if full and not extra["fold_ab_rel_err_float64"] < FOLD64_REL_BUDGET:
+        raise SystemExit(f"chip_smoke: folded and complex CF loops disagree in float64 "
+                         f"({extra['fold_ab_rel_err_float64']})")
     if launches["qf_real"] != expected_qf or launches["cf_half"] != expected_cf:
         raise SystemExit(f"chip_smoke: {phase}: launch counts {launches}, expected "
                          f"qf_real={expected_qf}, cf_half={expected_cf}")
@@ -1241,6 +1331,7 @@ def analysis_phase(lines: list) -> dict:
     with torch.no_grad():
         an64.logp(batches64[-1])
         qf.reset_launch_counts()
+        lp64 = an64.logp(torch.as_tensor(thetas, dtype=f64, device="cuda")).cpu().numpy()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         timed64 = [an64.logp(b) for b in batches64[:2]]
@@ -1249,8 +1340,12 @@ def analysis_phase(lines: list) -> dict:
         launches64 = dict(qf.LAUNCHES)
         by_shape64 = dict(qf.LAUNCHES_BY_SHAPE)
     float64 = dict(batch=nb, logp_ms=batch64_s * 1e3, evals_per_s=nb / batch64_s,
-                   all_finite=bool(all(torch.isfinite(x).all() for x in timed64)),
-                   qf_real_launches=launches64["qf_real"])
+                   all_finite=bool(np.isfinite(lp64).all()
+                                   and all(torch.isfinite(x).all() for x in timed64)),
+                   max_abs_dlogp=float(np.abs(lp64 - lp_ref).max()),
+                   budget=LOGP64_ABS_BUDGET, reference="float64 plain path, the 64 points",
+                   qf_real_launches=launches64["qf_real"],
+                   expected_qf_real=3 * QF_PER_ANALYSIS_LOGP)
     del an64
     emulator, by_shape_emu = emulator_check(workdir)
     line = emit(
@@ -1295,7 +1390,8 @@ def analysis_phase(lines: list) -> dict:
                                      and tpl["qf_real_launches_per_logp"] == 0
                                      and tpl["all_finite"]),
         f"float64 logp {float64}": (float64["all_finite"]
-                                    and float64["qf_real_launches"] == 2 * QF_PER_ANALYSIS_LOGP),
+                                    and float64["max_abs_dlogp"] <= LOGP64_ABS_BUDGET
+                                    and float64["qf_real_launches"] == 3 * QF_PER_ANALYSIS_LOGP),
         f"emulator provider {emulator}": (emulator["all_finite"]
                                           and emulator["max_abs_dlogp"] < LOGP_ABS_BUDGET
                                           and emulator["qf_real_launches"] == 2),
@@ -1312,6 +1408,9 @@ def main() -> None:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only, few timed calls")
     ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--against", default=None,
+                    help="directory holding another quadform.cu whose float64 kernels are "
+                         "timed beside this tree's")
     ap.add_argument("--out", default=None,
                     help="directory that receives chip_smoke.json and ptxas.log")
     args = ap.parse_args()
@@ -1339,6 +1438,7 @@ def main() -> None:
             max_registers=max([k["registers"] or 0 for k in kernels] or [0]),
             kernels_with_spills=sum(1 for k in kernels
                                     if (k["spill_stores"] or 0) + (k["spill_loads"] or 0)),
+            sass=sass_counts(log["path"]),
             registers={k["kernel"]: k["registers"] for k in kernels})
     lines.append(emit("build", seconds=build_s, sources=per_source))
     if args.out:
@@ -1353,8 +1453,12 @@ def main() -> None:
     shapes = [
         ("qf_real", f32, 3, 33, 20, 11), ("qf_real", f64, 3, 33, 20, 11),
         ("cf_half", f32, 3, 33, 20, 11), ("cf_half", f64, 3, 33, 20, 11),
+        # W·S = 130: no multiple of the float64 column tiles (64 of w, 32 of
+        # [zr | zi]), at the flagship's N
+        ("qf_real", f64, 5, 255, 26, 7), ("cf_half", f64, 5, 257, 26, 7),
         ("qf_real", f32, 64, 255, 80, 114), ("qf_real", f32, 64, 255, 80, 76),
         ("qf_real", f32, 64, 255, 50, 28), ("cf_half", f32, 64, 257, 80, 38),
+        ("cf_half", f64, 64, 257, 80, 38),
     ]
     if not args.quick:
         # the walker counts the timed batches may hand the kernel (chunk trials)
@@ -1368,6 +1472,10 @@ def main() -> None:
         rows += [check_kernel("qf_real", f64, args.batch, 255, s_, bl, gen=gen, n_timed=2)
                  for s_, bl in ((80, 114), (80, 76), (50, 28))]
     lines.append(emit("kernel_checks", kernels=rows))
+    if args.against:
+        timed64 = [(r["kernel"], r["W"], r["N"], r["S"], r["BL"]) for r in rows
+                   if r["dtype"] == "f64" and r["W"] >= 64]
+        lines.append(emit("against", rows=against_rows(args.against, timed64, gen)))
     if args.quick:
         print(smi)
         print(json.dumps({"ok": True, "quick": True,
@@ -1405,8 +1513,10 @@ def main() -> None:
             "bound_ms", "bound_by", "peak", "library_ms", "prepared")}
             | {"launches": sum(per_path.values()), "launches_by_path": per_path})
     for kernel in ("qf_real", "cf_half"):
-        if not any(r["name"].startswith(kernel) for r in out_rows):
-            raise SystemExit(f"chip_smoke: kernel {kernel} was not launched by the main path")
+        for suffix in ("f32", "f64"):
+            if not any(r["name"].startswith(f"{kernel}[{suffix},") for r in out_rows):
+                raise SystemExit(f"chip_smoke: kernel {kernel} ({suffix}) was not launched "
+                                 f"on any path")
     print(json.dumps({"kernels": out_rows}), flush=True)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -1,384 +1,442 @@
 // Fused quadratic forms  out[w,b,s] = sum_n w[w,n,s] * sum_m M[b,n,m] w[w,m,s]
-// for NVIDIA Hopper (sm_90a), plain C interface, loaded with ctypes: the
-// FLOAT64 instances, on the FMA pipe.
+// in FLOAT64 on Hopper's float64 tensor cores (sm_90a), plain C interface,
+// loaded with ctypes.
 //
 // Replaces, in float64, the two Pallas TPU kernels of
 // eftpipe_tpu/ops/pallas_kernels.py:
 //   qf_real  <- _qf_real_kernel  (real, Hermitian-folded form)
 //   cf_half  <- _cf_half_kernel  (one real part of a complex M against both
 //                                 parts of z; the A/B reference of the fold)
-// Both compute V = M w and reduce w .* V over n without V ever reaching
-// device memory.  The float32 main path runs on the tensor cores
-// (quadform_tc.cu, 3xTF32); these float64 instances serve the on-card
-// float64 checks and are not on the float32 main path.  The FMA template
-// below is the design of the first slice of the port, kept as it was apart
-// from its float32 settings, which went with its float32 instances.
+// Both compute V = L z and reduce z .* V over n without V ever reaching
+// device memory.  The float32 instances are in quadform_tc.cu (3xTF32).
 //
-// What bounds it on this card: operations, and in practice the shared-memory
-// reads that feed them.  With N = 255, S = 80, BL = 114 the work is hundreds of
-// flops per byte moved once, far above the float64-FMA ridge of the card, so
-// the design is a register-tiled float64 FMA product with the reduction fused
-// into its epilogue, and it does as little of the product as the form allows:
+// What bounds it: operations.  Per b the form is a product V_b = L_b Z with
+// N x N x (W*S) multiply-adds (half of them, L being a triangle) and a few
+// bytes per column, far above the card's ridge; the least time is the
+// triangle's operations at the 67 TFLOP/s of the float64 tensor cores (the
+// FMA pipe outside them gives half that).
 //
-//  * Only the symmetric part of M enters w^T M w.  The wrapper hands over
-//    L = the lower triangle of M + M^T with the diagonal of M (w^T L w =
-//    w^T M w), zero-padded to (NP, NP), NP a multiple of TK; the kernel reads
-//    and multiplies the tiles on and left of the diagonal only: (N/RB + 1)/2
-//    of N/RB row blocks' worth, 56 % at N = 255.  Rows of L are 16-byte
-//    aligned, so its tiles are fetched as 16-byte vectors with no column mask.
-//  * One M_b (255*255*8 = 520 KB) does not fit a block's 227 KB of shared
-//    memory, so a block keeps a COLUMN tile of w resident instead: all N rows
-//    of TJ = 64 columns of the flattened (walker, s) axis.  It arrives by
-//    asynchronous copies (cp.async), all of its elements in flight at once,
-//    and serves a run of matrices L_b0 .. L_b0+bchunk-1; BL is split over
-//    blocks only as far as it takes to fill the card.
-//  * The sum over n and m is linear, so the tiles of L_b may be dealt to the
-//    warps in any way: in row-block order they are cut into 8 equal runs, one
-//    a warp.  A warp streams its tiles (RB rows x TK deep) through two small
-//    staging buffers of its own, synchronising with itself only; every element
-//    of V it produces is consumed at once by sum_n w[n,j] V[n,j] in registers.
-//    The block meets once per b, to add up the warps' column sums: no V in
-//    device memory, no cross-block reduction, no atomics, sums in a fixed order.
-//  * A block indexes its own b (no padding of BL), and reads w in its
-//    (W, N, S) layout as it is (no walker regrouping or transposes).  Ragged
-//    edges of w (rows past N, W*S not a multiple of TJ) are zero-filled and
-//    never stored.
-//  * Blocks that run at the same time share a few w tiles and the lower
-//    triangles of L (about 30 MB at BL = 114), which stay in the 50 MB L2.
+// The instruction: mma.sync.aligned.m16n8k16.row.col.f64 (DMMA.16x8x16).
+// wgmma has no float64.  On the H100 the m16n8k{4,8,16} shapes all run near
+// the float64 tensor-core peak from registers with one warp per SM
+// sub-partition; the sm_80 shape m8n8k4 at about half of it.  The design, with D = V
+// (M = 16 rows of L, N = 8 columns of z, K = 16 depths):
 //
-// Each thread owns an RW x 8 micro-tile of V, RW = 4 rows: 64-bit values
-// (and, in cf_half, two accumulator sets) leave registers for no more.
-// The staged tile is stored transposed (ms[k][row]) so a thread reads its rows
-// as 16-byte vectors; a thread's columns are four 16-byte chunks TX vectors
-// apart, so that a quarter-warp reads 128 contiguous bytes
-// without bank conflicts; the next tile is fetched into registers while the
-// current one is multiplied.
+//  * Only the symmetric part of M enters z^T M z.  The model hands over, once
+//    (ops/quadform.py kernel_matrices), L = the lower triangle of M + M^T
+//    with the diagonal of M, zero-padded to (NP, NP), NP a multiple of 16.
+//  * One L_b (NP = 256: 512 KB) is more than a block's shared memory, so a
+//    block keeps a COLUMN tile of z resident instead: all NP rows of TP = 64
+//    product columns (qf_real: 64 columns of w; cf_half: the same 32 columns
+//    of zr and of zi, so that V_r and V_i are one product of L against
+//    [zr | zi]), stored column-major with a row pitch of NP + 2 doubles,
+//    loaded by cp.async, zero-filled past N and past W*S.
+//  * Persistent grid: one block an SM, each walking an equal share of the
+//    (column tile, b) pairs in order and reloading its resident tile when
+//    the column tile changes.
+//  * Warp-specialised: a producer warp streams L through a ring of up to 3
+//    shared stages (64 rows x 64 depths, 32 KB) by cp.async 16-byte copies,
+//    handed over by full and empty mbarriers (the copies arrive on the full
+//    one by cp.async.mbarrier.arrive.noinc); the 8 consumer warps never meet
+//    it at a block barrier.  Only the lower triangle is copied and
+//    multiplied: a 16-row tile is skipped at the 16 depths right of its
+//    diagonal, 34,816 multiply-adds a column at NP = 256 (exact: 32,640).
+//  * Consumer warp (cg, kh): the 16 product columns of column group cg (two
+//    n8 tiles), all 64 rows of the row block (four m16 tiles), the k16 steps
+//    2 kh, 2 kh + 1 of every stage: 16 DMMAs and 40 16-byte shared loads a
+//    lane a stage, 32 float64 accumulators.  The two warps of a
+//    sub-partition share cg, so the triangle's work is the same on all
+//    four.  The DMMA's depth is permuted (k-slot t + 4q is depth 4t + q), so
+//    that a lane's A and B fragments are 32 contiguous bytes; the staged
+//    rows are XOR-swizzled by the row's parity at 16 bytes and the resident
+//    tile's pitch NP + 2 puts neighbouring columns 16 bytes apart: no bank
+//    conflicts.
+//  * When a row block ends a warp multiplies its part of V by z and sums
+//    over its rows in registers; per b it sums over its lanes by shuffles,
+//    the second depth half adds its sums to the first's through shared
+//    memory, and the first stores.  No V in device memory, no atomics, sums
+//    in a fixed order: bitwise repeatable runs.
+//
+// Bytes: L is read from L2 once per column tile and b, its triangle trimmed
+// as multiplied: 34,816 doubles per b at NP = 256, 41 GB a launch at W =
+// 1024, S = 80, BL = 114 (1,280 column tiles), ~2 TB/s at the kernel's time.
+// A wider tile does not fit: 64 columns of float64 at NP = 272 take 140 KB of
+// the 227 KB beside the ring.
+//
+// What holds it at ~47 % of the bound (PERF.md, PR 7): shared memory feeds
+// 0.73 B a multiply-add (the L tile is read by the four column groups), and
+// with the producer warp three warps share sub-partition 0, which caps the
+// registers at 168 a thread: no room for wider warp tiles or for loads a
+// step ahead of the DMMAs.  Slower on the H100: one warp a sub-partition
+// with a block barrier a stage, 32-deep stages, wider warp tiles (spills),
+// the copies spread over the consumers, L by TMA boxes from one thread.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TK = 8;   // depth of one staged tile of M; M is padded to a multiple of it
-constexpr int CW = 8;   // columns per thread
-constexpr int BLOCKS_PER_SM = 16;  // blocks the grid aims at for every SM
+constexpr int CWARPS = 8;                  // consumer warps: 4 column groups x 2 depth halves
+constexpr int CONSUMERS = 32 * CWARPS;
+constexpr int THREADS = CONSUMERS + 32;    // and one producer warp
+constexpr int RB = 64;                     // rows of L in a row block: four m16 tiles
+constexpr int KT = 64;                     // depths of a staged tile: four m16n8k16 steps
+constexpr int PAD = 16;                    // NP is a multiple of it
+constexpr int TP = 64;                     // product columns of a block
+constexpr int STAGE = RB * KT;             // doubles of a staged tile
+constexpr int MAX_STAGES = 3;
+constexpr int RED = 4 * 16;                // doubles of the depth halves' exchange
+static_assert(KT == 64 && RB == 64, "a producer lane copies one 16-byte chunk of a staged row");
+constexpr int BAR_CONSUMERS = 1;           // named barriers: the consumers, and
+constexpr int BAR_PAIR = 2;                // BAR_PAIR + g: the two warps of column group g
+constexpr size_t SMEM_LIMIT = 232448;      // bytes of shared memory a block may use
 
-template <typename T, int TJ, int NZ, int RW>
-struct Tile {
-  static constexpr int VEC = 16 / int(sizeof(T));    // elements of a 16-byte vector
-  static constexpr int TX = TJ / CW;                  // threads across columns
-  static constexpr int WTY = 32 / TX;                 // threads across rows, one warp
-  static constexpr int RB = WTY * RW;                 // rows of M a warp multiplies at a time
-  static constexpr int MS_LD = RB + VEC;              // padded, keeps 16-byte alignment
-  static constexpr int KV = TK / VEC;                 // 16-byte vectors per staged row
-  static constexpr int PFV = RB * KV / 32;            // vectors of M a lane prefetches
-  static constexpr int MS_ELEMS = WARPS * 2 * TK * MS_LD;  // two staging buffers a warp
-  static constexpr int RED_ELEMS = 2 * NZ * WARPS * TJ;  // cross-warp reduction, two b in turn
-  static_assert(TJ % CW == 0 && 32 % TX == 0 && THREADS % TJ == 0, "tile shape");
-  static_assert((RB * KV) % 32 == 0 && RW % VEC == 0 && CW % VEC == 0, "tile shape");
+__host__ __device__ constexpr int ldw_of(int np) { return np + 2; }
+
+size_t smem_bytes(int np, int stages) {
+  return sizeof(double) * (size_t(stages) * STAGE + size_t(TP) * ldw_of(np) + RED)
+         + 2 * sizeof(uint64_t) * stages;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return unsigned(__cvta_generic_to_shared(p));
+}
+
+// 8 bytes from device to shared memory, or zeros
+__device__ __forceinline__ void copy8(double* dst, const double* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
+
+__device__ __forceinline__ void copy16(double* dst, const double* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(b)) : "memory");
+}
+
+// the barrier's pending arrival of this thread happens when all its earlier
+// cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(b))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(b)), "r"(parity) : "memory");
+}
+
+// D += A B: A 16 x 16 (a[2q] = A[g][t+4q], a[2q+1] = A[g+8][t+4q]),
+// B 16 x 8 (b[q] = B[t+4q][g]), D 16 x 8 (d = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]); g = lane / 4, t = lane % 4
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8], const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, {%0,%1,%2,%3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]), "d"(a[7]),
+        "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// where a staged row's 16-byte chunk c lies (in doubles): swizzled by the
+// row's parity, so that the two rows a quarter-warp reads fill all 32 banks
+__device__ __forceinline__ int chunk_at(int row, int c) { return 2 * (c ^ (row & 1)); }
+
+// The walk over the stages of a block's run: column tile `ctile`, matrix b,
+// row block h, depth m0; a row block takes the depths left of and on its
+// diagonal block, up to NP; the pairs (column tile, b) come in the order
+// ctile * BL + b.
+struct Walk {
+  long long ctile;
+  int b, h, m0;
+  __device__ int depth_end(int np) const { return min(np, RB * (h + 1)); }
+  __device__ void next(int np, int nrb, int bl) {
+    m0 += KT;
+    if (m0 >= depth_end(np)) {
+      m0 = 0;
+      if (++h == nrb) {
+        h = 0;
+        if (++b == bl) {
+          b = 0;
+          ++ctile;
+        }
+      }
+    }
+  }
 };
 
-template <typename T, int TJ, int NZ, int RW>
-size_t smem_bytes(int np) {
-  using L = Tile<T, TJ, NZ, RW>;
-  return sizeof(T) * (size_t(NZ) * np * TJ + size_t(L::MS_ELEMS) + size_t(L::RED_ELEMS));
-}
-
-// 16-byte loads of COUNT contiguous, 16-byte aligned elements
-template <int COUNT>
-__device__ inline void load_vec(const double* p, double* d) {
-#pragma unroll
-  for (int i = 0; i < COUNT / 2; ++i) {
-    const double2 v = reinterpret_cast<const double2*>(p)[i];
-    d[2 * i] = v.x; d[2 * i + 1] = v.y;
-  }
-}
-
-// asynchronous copy of one element from device to shared memory, or a zero
-template <typename T>
-__device__ inline void copy_async(T* dst, const T* src, bool valid) {
-  static_assert(sizeof(T) == 8, "element size");
-  const unsigned d = unsigned(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? int(sizeof(T)) : 0;  // fewer than the size: zero-filled
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d), "l"(src), "r"(bytes) : "memory");
-}
-
-// the thread's CW columns of row `row` of a resident tile: CW / VEC chunks of
-// VEC contiguous columns, chunk q at column q * TX * VEC + tx * VEC
-template <typename T, int TJ, int VEC, int TX>
-__device__ inline void load_cols(const T* tile, int row, int tx, T (&d)[CW]) {
-#pragma unroll
-  for (int q = 0; q < CW / VEC; ++q)
-    load_vec<VEC>(tile + size_t(row) * TJ + q * TX * VEC + tx * VEC, d + q * VEC);
-}
-
-// NZ = 1: out0 = sum_n z0 .* (L z0)                         (qf_real)
+// NZ = 1: out0 = sum_n z0 .* (L z0)                          (qf_real)
 // NZ = 2: out0 = sum_n z0 .* (L z0) - z1 .* (L z1)
-//         out1 = sum_n z0 .* (L z1) + z1 .* (L z0)           (cf_half)
-// z*: (W, N, S), out*: (W, BL, S), contiguous; m: (BL, NP, NP), the LOWER
-// TRIANGULAR (N, N) matrices L zero-padded to NP = a multiple of TK, 16-byte
-// aligned.  Nothing right of the diagonal blocks (RB x RB) is read; inside
-// them m must be zero right of the diagonal, as tril_fold of the wrapper makes it.
-template <typename T, int TJ, int NZ, int RW>
+//         out1 = sum_n z0 .* (L z1) + z1 .* (L z0)            (cf_half)
+// z*: (W, N, S), out*: (W, BL, S), contiguous; l: (BL, NP, NP), the LOWER
+// TRIANGULAR matrices L zero-padded to NP = a multiple of 16, 16-byte aligned;
+// `stages` buffers in the ring.
+template <int NZ>
 __global__ void __launch_bounds__(THREADS, 1)
-quadform_kernel(const T* __restrict__ z0, const T* __restrict__ z1,
-                const T* __restrict__ m, T* __restrict__ out0, T* __restrict__ out1,
-                int W, int N, int NP, int S, int BL, int bchunk) {
-  using L = Tile<T, TJ, NZ, RW>;
-  constexpr int VEC = L::VEC, TX = L::TX, RB = L::RB, MS_LD = L::MS_LD, KV = L::KV,
-                PFV = L::PFV;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ws0 = reinterpret_cast<T*>(smem_raw);           // [NP][TJ]
-  T* ws1 = ws0 + size_t(NZ - 1) * NP * TJ;           // [NP][TJ] (NZ = 2)
-  T* ms = ws0 + size_t(NZ) * NP * TJ;                // [WARPS] x 2 x [TK][MS_LD]
-  T* red = ms + L::MS_ELEMS;                         // 2 x [NZ][WARPS][TJ]
+qf_dmma_kernel(const double* __restrict__ z0, const double* __restrict__ z1,
+               const double* __restrict__ l, double* __restrict__ out0,
+               double* __restrict__ out1, int W, int N, int NP, int S, int BL, int stages) {
+  constexpr int TJ = TP / NZ;  // columns of z in a tile
+  const int ldw = ldw_of(NP);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  double* ring = reinterpret_cast<double*>(smem_raw);               // [stages][RB][KT]
+  double* ws = ring + stages * STAGE;                                  // [TP][ldw]
+  double* red = ws + TP * ldw;                                         // [4][16]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + RED);            // [stages]
+  uint64_t* empty = full + stages;                                     // [stages]
 
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int tx = lane % TX;
-  const int wty = lane / TX;
-  T* wms = ms + warp * 2 * TK * MS_LD;
-  // the block's matrices b0 .. b0 + nb - 1 and its TJ columns
-  const int bsplit = (BL + bchunk - 1) / bchunk;
-  const int b0 = int(blockIdx.x % bsplit) * bchunk;
-  const int nb = min(bchunk, BL - b0);
-  const long long j0 = (long long)(blockIdx.x / bsplit) * TJ;
+  const int lane = tid & 31, warp = tid >> 5;
   const long long ncol = (long long)W * S;
+  const int nrb = (NP + RB - 1) / RB;
+  int per_pair = 0;
+  for (int h = 0; h < nrb; ++h) per_pair += (min(NP, RB * (h + 1)) + KT - 1) / KT;
+  // the block's pairs u0 <= u < u1, u = (column tile) * BL + b
+  const long long pairs = (ncol + TJ - 1) / TJ * BL;
+  const long long u0 = blockIdx.x * pairs / gridDim.x;
+  const long long u1 = (blockIdx.x + 1) * pairs / gridDim.x;
+  const long long total = (u1 - u0) * per_pair;
 
-  // The work on one L_b: row block r (rows r * RB ..) against the depths
-  // 0 .. depth(r) - 1 left of and on its diagonal, in tiles of TK.  The
-  // tiles of all row blocks, in order, are dealt to the warps in equal runs,
-  // the same run for every b; a warp walks its run tile by tile.
-  auto depth = [&](int r) { return min(NP, RB * (r + 1)); };
-  const int nrb = (N + RB - 1) / RB;
-  int ntiles = 0;
-  for (int r = 0; r < nrb; ++r) ntiles += depth(r) / TK;
-  const int run0 = warp * ntiles / WARPS;
-  const int run = (warp + 1) * ntiles / WARPS - run0;
-  int r_first = 0, m_first = run0;
-  while (r_first < nrb && m_first >= depth(r_first) / TK) m_first -= depth(r_first++) / TK;
-  m_first *= TK;
-  const int total = nb * run;
-
-  // The tile being fetched: each lane fetches PFV 16-byte vectors (rows past
-  // NP as zeros), then stores them transposed.
-  T pf[PFV][VEC];
-  const T* mb = m + (size_t)b0 * NP * NP;
-  int pr = r_first, pm0 = m_first, pleft = run;
-  auto prefetch = [&]() {
-#pragma unroll
-    for (int i = 0; i < PFV; ++i) {
-      const int v = lane + i * 32;
-      const int n = pr * RB + v / KV;
-      if (n < NP) {
-        load_vec<VEC>(mb + (size_t)n * NP + pm0 + (v % KV) * VEC, pf[i]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) pf[i][e] = T(0);
-      }
-    }
-    pm0 += TK;
-    if (--pleft == 0) {
-      pleft = run;
-      pr = r_first;
-      pm0 = m_first;
-      mb += (size_t)NP * NP;
-    } else if (pm0 == depth(pr)) {
-      pm0 = 0;
-      ++pr;
-    }
-  };
-  auto stage = [&](T* buf) {
-#pragma unroll
-    for (int i = 0; i < PFV; ++i) {
-      const int v = lane + i * 32;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) buf[((v % KV) * VEC + e) * MS_LD + v / KV] = pf[i][e];
-    }
-  };
-  if (total > 0) prefetch();
-
-  // The resident tile: all N rows of this thread's column (the same column
-  // in every pass, as THREADS is a multiple of TJ), copied asynchronously so
-  // that every element is in flight at once; rows past N and ragged columns
-  // are zero-filled.
-  {
-    const long long j = j0 + tid % TJ;
-    const bool col_ok = j < ncol;
-    const long long base = col_ok ? (j / S) * (long long)N * S + (j % S) : 0;
-    for (int n = tid / TJ; n < NP; n += THREADS / TJ) {
-      const bool ok = col_ok && n < N;
-      const long long off = ok ? base + (long long)n * S : 0;
-      copy_async(ws0 + n * TJ + tid % TJ, z0 + off, ok);
-      if constexpr (NZ == 2) copy_async(ws1 + n * TJ + tid % TJ, z1 + off, ok);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, CWARPS);
     }
   }
-  if (total > 0) stage(wms);
-  asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
 
-  T sum0[CW], sum1[CW];
-  T acc0[RW][CW], acc1[NZ == 2 ? RW : 1][CW];
-#pragma unroll
-  for (int c = 0; c < CW; ++c) {
-    sum0[c] = T(0);
-    sum1[c] = T(0);
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      acc0[i][c] = T(0);
-      if constexpr (NZ == 2) acc1[i][c] = T(0);
+  if (warp == CWARPS) {
+    // ---- the producer warp: stage k of the run into buffer k % stages,
+    // once every consumer warp is done with the stage before it there.  A
+    // warp instruction copies a row (32 chunks of 16 bytes); a chunk is not
+    // copied for the 16-row tiles right of whose diagonal it lies.
+    Walk pw{u0 / BL, int(u0 % BL), 0, 0};
+    int s = 0, parity = 0;
+    for (long long k = 0; k < total; ++k) {
+      if (k >= stages) mbar_wait(empty + s, parity ^ 1);
+      const int dend = pw.depth_end(NP);
+      const int nch = (min(KT, dend - pw.m0)) / 2;  // 16-byte chunks of a row
+      const int r0 = max(0, pw.m0 - RB * pw.h);
+      const int r1 = min(RB, NP - RB * pw.h);
+      const double* src = l + (size_t(pw.b) * NP + size_t(RB) * pw.h) * NP + pw.m0;
+      double* dst = ring + s * STAGE;
+      const int c = lane;
+      // the chunk's depth from the diagonal block, and its first row on or
+      // below the diagonal
+      const int rel = pw.m0 + 2 * c - RB * pw.h;
+      const int rfirst = max(r0, rel >= 0 ? rel & ~15 : 0);
+      if (c < nch)
+        for (int r = rfirst; r < r1; ++r)
+          copy16(dst + r * KT + chunk_at(r, c), src + size_t(r) * NP + 2 * c);
+      mbar_arrive_on_copies(full + s);
+      pw.next(NP, nrb, BL);
+      if (++s == stages) {
+        s = 0;
+        parity ^= 1;
+      }
     }
+    return;
   }
 
-  int t = 0;
-  for (int bi = 0; bi < nb; ++bi) {
-    int r = r_first, m0 = m_first;
-    for (int it = 0; it < run; ++it, ++t) {
-      const T* cur = wms + (t & 1) * TK * MS_LD;
-      const bool more = t + 1 < total;
-      if (more) prefetch();  // in flight during the FMAs below
+  // ---- the consumer warps: warp (cg, kh) owns the 16 product columns of
+  // column group cg and the k16 steps 2 kh, 2 kh + 1 (depths 32 kh .. 32 kh +
+  // 31) of every stage; warps w and w + 4 share a sub-partition and cg
+  const int cg = warp & 3, kh = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  auto colbase = [&](int c) { return NZ == 1 ? 16 * cg + 8 * c : 32 * c + 8 * cg; };
+  double acc[4][2][4];
+  double sum[2][2];  // qf_real: [n8 tile][column pair]; cf_half: [out0, out1][column pair]
 #pragma unroll
-      for (int k = 0; k < TK; ++k) {
-        T a[RW], v0[CW];
-        load_vec<RW>(cur + k * MS_LD + wty * RW, a);
-        load_cols<T, TJ, VEC, TX>(ws0, m0 + k, tx, v0);
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < RW; ++i)
+    for (int c = 0; c < 2; ++c)
 #pragma unroll
-          for (int c = 0; c < CW; ++c) acc0[i][c] += a[i] * v0[c];
-        if constexpr (NZ == 2) {
-          T v1[CW];
-          load_cols<T, TJ, VEC, TX>(ws1, m0 + k, tx, v1);
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0;
 #pragma unroll
-          for (int i = 0; i < RW; ++i)
-#pragma unroll
-            for (int c = 0; c < CW; ++c) acc1[i][c] += a[i] * v1[c];
-        }
+  for (int c = 0; c < 2; ++c) sum[c][0] = sum[c][1] = 0.0;
+
+  Walk cw{u0 / BL, int(u0 % BL), 0, 0};
+  long long loaded = -1;  // the column tile resident in ws
+  int s = 0, parity = 0;  // the buffer of stage k and the phase of its barriers
+  for (long long k = 0; k < total; ++k) {
+    const long long ctile = cw.ctile;
+    const int h = cw.h, m0 = cw.m0, dend = cw.depth_end(NP);
+    if (ctile != loaded) {
+      // ---- the resident tile, column-major, once every consumer is done
+      // with the last one; a warp covers 4 columns x 8 rows, so that it
+      // reads whole 32-byte sectors of z
+      named_barrier(BAR_CONSUMERS, CONSUMERS);
+      for (int idx = tid; idx < TP * NP; idx += CONSUMERS) {
+        const int grp = idx >> 5, ln = idx & 31;
+        const int pc = (grp % (TP / 4)) * 4 + (ln & 3);
+        const int n = (grp / (TP / 4)) * 8 + (ln >> 2);
+        const long long j = ctile * TJ + pc % TJ;
+        const bool ok = j < ncol && n < N;
+        const double* z = NZ == 2 && pc >= TJ ? z1 : z0;
+        copy8(ws + pc * ldw + n, z + (ok ? (j / S) * N * (long long)S + (long long)n * S + j % S : 0),
+              ok);
       }
-      m0 += TK;
-      const bool row_end = m0 == depth(r);
-      if (row_end || it + 1 == run) {
-        // fused epilogue: what this warp has of V in row block r, times z,
-        // summed over the thread's rows (the sum over n and m is linear, so
-        // a row block may be split between warps)
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      named_barrier(BAR_CONSUMERS, CONSUMERS);
+      loaded = ctile;
+    }
+
+    mbar_wait(full + s, parity);
+    const double* st = ring + s * STAGE;
 #pragma unroll
-        for (int i = 0; i < RW; ++i) {
-          const int n = r * RB + wty * RW + i;
-          if (n < N) {
-            T r0[CW];
-            load_cols<T, TJ, VEC, TX>(ws0, n, tx, r0);
+    for (int ks = 2 * kh; ks < 2 * kh + 2; ++ks) {
+      const int kc = 8 * ks;      // the step's first chunk in a staged row
+      const int d = m0 + 2 * kc;  // the step's depths d .. d + 15
+      if (d >= dend) break;
+      const int i0 = max(0, d - RB * h) / 16;    // first tile on or below the diagonal
+      const int nti = min(4, (NP - RB * h) / 16);  // tiles inside NP
+      double bf[2][4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const double* p = ws + (colbase(c) + g) * ldw + d + 4 * t;
+        const double2 x = *reinterpret_cast<const double2*>(p);
+        const double2 y = *reinterpret_cast<const double2*>(p + 2);
+        bf[c][0] = x.x; bf[c][1] = x.y; bf[c][2] = y.x; bf[c][3] = y.y;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i < i0 || i >= nti) continue;
+        const int r = 16 * i + g;
+        const double* p0 = st + r * KT;
+        const double* p1 = p0 + 8 * KT;  // row r + 8, of the same parity
+        const int c0 = chunk_at(r, kc + 2 * t), c1 = chunk_at(r, kc + 2 * t + 1);
+        const double2 x0 = *reinterpret_cast<const double2*>(p0 + c0);
+        const double2 x1 = *reinterpret_cast<const double2*>(p0 + c1);
+        const double2 y0 = *reinterpret_cast<const double2*>(p1 + c0);
+        const double2 y1 = *reinterpret_cast<const double2*>(p1 + c1);
+        const double a[8] = {x0.x, y0.x, x0.y, y0.y, x1.x, y1.x, x1.y, y1.y};
+#pragma unroll
+        for (int c = 0; c < 2; ++c) dmma(acc[i][c], a, bf[c]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);  // the warp's reads of stage k are done
+    if (++s == stages) {
+      s = 0;
+      parity ^= 1;
+    }
+
+    if (m0 + KT >= dend) {
+      // the row block is done: this warp's part of V times z, summed over
+      // this lane's rows (the sum over depths is linear, so the two depth
+      // halves may reduce apart)
+      const int nti = min(4, (NP - RB * h) / 16);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i < nti) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int n = RB * h + 16 * i + g + 8 * (e >> 1), q = e & 1;
             if constexpr (NZ == 1) {
 #pragma unroll
-              for (int c = 0; c < CW; ++c) sum0[c] += r0[c] * acc0[i][c];
+              for (int c = 0; c < 2; ++c)
+                sum[c][q] += ws[(colbase(c) + 2 * t + q) * ldw + n] * acc[i][c][e];
             } else {
-              T r1[CW];
-              load_cols<T, TJ, VEC, TX>(ws1, n, tx, r1);
-#pragma unroll
-              for (int c = 0; c < CW; ++c) {
-                sum0[c] += r0[c] * acc0[i][c] - r1[c] * acc1[i][c];
-                sum1[c] += r0[c] * acc1[i][c] + r1[c] * acc0[i][c];
-              }
+              const double zr = ws[(colbase(0) + 2 * t + q) * ldw + n];
+              const double zi = ws[(colbase(1) + 2 * t + q) * ldw + n];
+              sum[0][q] += zr * acc[i][0][e] - zi * acc[i][1][e];
+              sum[1][q] += zr * acc[i][1][e] + zi * acc[i][0][e];
             }
           }
+        }
 #pragma unroll
-          for (int c = 0; c < CW; ++c) {
-            acc0[i][c] = T(0);
-            if constexpr (NZ == 2) acc1[i][c] = T(0);
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0;
+      }
+      if (h == nrb - 1) {
+        // the b is done: sums over the lanes of a column, then the second
+        // depth half's sums added to the first's through `red`, and the store
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+#pragma unroll
+            for (int off = 4; off < 32; off *= 2)
+              sum[c][q] += __shfl_xor_sync(0xffffffffu, sum[c][q], off);
           }
-        }
-      }
-      if (row_end) {
-        m0 = 0;
-        ++r;
-      }
-      // the other buffer was last read before the previous __syncwarp
-      if (more) stage(wms + ((t + 1) & 1) * TK * MS_LD);
-      __syncwarp();
-    }
-
-    // L_b is done: add up each column's partial sums, over the warp's rows of
-    // threads by shuffles, over the warps through `red`, and store.  The two
-    // halves of `red` serve even and odd b, so one barrier a b is enough.
-    T* rb = red + (bi & 1) * (L::RED_ELEMS / 2);
+        double* rd = red + cg * 16 + 4 * t;
+        if (kh == 1 && g == 0) {
 #pragma unroll
-    for (int c = 0; c < CW; ++c) {
-#pragma unroll
-      for (int off = TX; off < 32; off *= 2) {
-        sum0[c] += __shfl_xor_sync(0xffffffffu, sum0[c], off);
-        if constexpr (NZ == 2) sum1[c] += __shfl_xor_sync(0xffffffffu, sum1[c], off);
-      }
-      const int col = (c / VEC) * TX * VEC + tx * VEC + c % VEC;
-      if (wty == 0) {
-        rb[warp * TJ + col] = sum0[c];
-        if constexpr (NZ == 2) rb[(WARPS + warp) * TJ + col] = sum1[c];
-      }
-      sum0[c] = T(0);
-      sum1[c] = T(0);
-    }
-    __syncthreads();
-    if (tid < TJ) {
-      const long long j = j0 + tid;
-      if (j < ncol) {
-        T t0 = T(0), t1 = T(0);
-        for (int y = 0; y < WARPS; ++y) {
-          t0 += rb[y * TJ + tid];
-          if constexpr (NZ == 2) t1 += rb[(WARPS + y) * TJ + tid];
+          for (int c = 0; c < 2; ++c) rd[2 * c] = sum[c][0], rd[2 * c + 1] = sum[c][1];
         }
-        const size_t o = ((size_t)(j / S) * BL + (b0 + bi)) * S + (size_t)(j % S);
-        out0[o] = t0;
-        if constexpr (NZ == 2) out1[o] = t1;
+        named_barrier(BAR_PAIR + cg, 64);
+        if (kh == 0 && g == 0) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int jt = colbase(NZ == 1 ? c : 0) + 2 * t + q;
+              const long long j = ctile * TJ + jt;
+              if (j < ncol) {
+                const size_t o = ((size_t)(j / S) * BL + cw.b) * S + (size_t)(j % S);
+                const double v = sum[c][q] + rd[2 * c + q];
+                if constexpr (NZ == 1) out0[o] = v;
+                else (c == 0 ? out0 : out1)[o] = v;
+              }
+            }
+        }
+        named_barrier(BAR_PAIR + cg, 64);  // `red` is free again
+#pragma unroll
+        for (int c = 0; c < 2; ++c) sum[c][0] = sum[c][1] = 0.0;
       }
     }
+    cw.next(NP, nrb, BL);
   }
 }
 
-template <typename T, int TJ, int NZ, int RW>
-cudaError_t launch_tile(const T* z0, const T* z1, const T* m, T* out0, T* out1,
-                        int W, int N, int NP, int S, int BL, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, TJ, NZ, RW>(NP);
-  auto kernel = quadform_kernel<T, TJ, NZ, RW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const long long tiles = ((long long)W * S + TJ - 1) / TJ;
-  // Each block keeps its column tile for `bchunk` matrices in turn, so that
-  // loading the tile is paid once for many products; BL is split only as far
-  // as it takes to give every SM several blocks.
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  const long long want = (BLOCKS_PER_SM * sms + tiles - 1) / tiles;
-  const int bsplit = int(want < BL ? want : BL);
-  const int bchunk = (BL + bsplit - 1) / bsplit;
-  const long long blocks = tiles * ((BL + bchunk - 1) / bchunk);
-  if (blocks <= 0 || blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-  kernel<<<unsigned(blocks), THREADS, smem, stream>>>(z0, z1, m, out0, out1, W, N, NP, S, BL, bchunk);
-  return cudaGetLastError();
-}
-
-constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
-
-template <typename T, int NZ>
-int launch(const void* z0, const void* z1, const void* m, void* out0, void* out1,
+template <int NZ>
+int launch(const void* z0, const void* z1, const void* l, void* out0, void* out1,
            int W, int N, int NP, int S, int BL, void* stream) {
-  constexpr int RW = 4;  // rows of M a thread
-  if (W <= 0 || N <= 0 || S <= 0 || BL <= 0 || NP < N || NP % TK != 0 ||
-      reinterpret_cast<size_t>(m) % 16 != 0)
+  if (W <= 0 || N <= 0 || S <= 0 || BL <= 0 || NP < N || NP % PAD != 0 ||
+      reinterpret_cast<size_t>(l) % 16 != 0)
     return int(cudaErrorInvalidValue);
-  const T* a = static_cast<const T*>(z0);
-  const T* c = static_cast<const T*>(z1);
-  const T* mm = static_cast<const T*>(m);
-  T* o0 = static_cast<T*>(out0);
-  T* o1 = static_cast<T*>(out1);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (smem_bytes<T, 64, NZ, RW>(NP) <= SMEM_LIMIT)
-    return int(launch_tile<T, 64, NZ, RW>(a, c, mm, o0, o1, W, N, NP, S, BL, st));
-  if (smem_bytes<T, 32, NZ, RW>(NP) <= SMEM_LIMIT)
-    return int(launch_tile<T, 32, NZ, RW>(a, c, mm, o0, o1, W, N, NP, S, BL, st));
-  return int(cudaErrorInvalidValue);  // N too large for a resident column tile
+  // as many ring buffers as fit beside the resident tile, up to MAX_STAGES
+  int stages = MAX_STAGES;
+  while (stages > 2 && smem_bytes(NP, stages) > SMEM_LIMIT) --stages;
+  const size_t smem = smem_bytes(NP, stages);
+  if (smem > SMEM_LIMIT) return int(cudaErrorInvalidValue);  // N too large for a resident tile
+  auto kernel = qf_dmma_kernel<NZ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(smem));
+  if (err != cudaSuccess) return int(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return int(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return int(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
+      cudaSuccess)
+    return int(err);
+  if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
+  // as many blocks as run at once, or one per (column tile, b) pair
+  const long long pairs = ((long long)W * S + TP / NZ - 1) / (TP / NZ) * BL;
+  const long long blocks = std::min((long long)sms * per_sm, pairs);
+  kernel<<<unsigned(blocks), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(z0), static_cast<const double*>(z1),
+      static_cast<const double*>(l), static_cast<double*>(out0), static_cast<double*>(out1),
+      W, N, NP, S, BL, stages);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -386,19 +444,20 @@ int launch(const void* z0, const void* z1, const void* m, void* out0, void* out1
 extern "C" {
 
 // Each function enqueues one kernel on `stream`, does not synchronise and
-// returns cudaGetLastError() as an int (0 = launched).  `m` holds the (N, N)
-// matrices zero-padded to (NP, NP), NP a multiple of eft_quadform_pad().
+// returns cudaGetLastError() as an int (0 = launched).  `m` holds the
+// (BL, NP, NP) lower-triangular fold, NP a multiple of eft_quadform_pad(); see
+// ops/quadform.py kernel_matrices.
 
-int eft_quadform_pad() { return TK; }
+int eft_quadform_pad() { return PAD; }
 
 int eft_qf_real_f64(const void* w, const void* m, void* out,
                     int W, int N, int NP, int S, int BL, void* stream) {
-  return launch<double, 1>(w, nullptr, m, out, nullptr, W, N, NP, S, BL, stream);
+  return launch<1>(w, nullptr, m, out, nullptr, W, N, NP, S, BL, stream);
 }
 
 int eft_cf_half_f64(const void* m, const void* zr, const void* zi, void* out1, void* out2,
                     int W, int N, int NP, int S, int BL, void* stream) {
-  return launch<double, 2>(zr, zi, m, out1, out2, W, N, NP, S, BL, stream);
+  return launch<2>(zr, zi, m, out1, out2, W, N, NP, S, BL, stream);
 }
 
 const char* eft_cuda_error_string(int code) {

@@ -46,11 +46,12 @@ here on either device, differentiated by autograd.
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches a kernel or raises.  float32 runs on the
 tensor cores with a 3xTF32 split (``csrc/quadform_tc.cu``), float64 on the
-FMA template of ``csrc/quadform.cu`` (the on-card float64 checks).  Only the
-symmetric part of M enters these forms, so the kernels multiply a lower
+float64 tensor cores (``csrc/quadform.cu``, ``mma.sync`` m16n8k16).  Only
+the symmetric part of M enters these forms, so the kernels multiply a lower
 triangle: ``kernel_matrices(m)`` makes the layout a kernel reads (the fold,
-padded as its library asks; the float32 kernels split it into TF32 hi and lo
-parts on the chip).  Constant matrices get it once per model
+padded as its library asks: to a multiple of 64 rows for float32, 16 for
+float64; the float32 kernels split it into TF32 hi and lo parts on the
+chip).  Constant matrices get it once per model
 (``models/nonlinear.py``, ``api/flagship.py``) and hand it to the ops as
 ``prepared``; a raw ``m`` is prepared on the fly.  The plain versions and the
 backward always use ``m``.
@@ -228,8 +229,8 @@ def cf_contract_plain(zr, zi, mr, mi):
 # ---------------------------------------------------------------------------
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-# the source of each dtype's kernels: float32 on the tensor cores, float64 on
-# the FMA pipe
+# the source of each dtype's kernels: float32 on the tensor cores in a 3xTF32
+# split, float64 on the float64 tensor cores
 _LIB = {torch.float32: "quadform_tc", torch.float64: "quadform"}
 _FUNCS: dict[str, object] = {}
 

@@ -64,8 +64,8 @@ def test_no_jax_import_statement_in_the_port_sources():
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|eftpipe_tpu)(\s|\.|$)", re.M)
-    files = list((ROOT / "eftpipe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                 ROOT / "hmc_flagship.py"]
+    files = list((ROOT / "eftpipe_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "hmc_flagship.py", ROOT / "tests" / "test_torch_gpu.py"]
     assert len(files) > 20
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders

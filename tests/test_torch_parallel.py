@@ -386,41 +386,3 @@ def test_driver_state_from_numpy_carries_the_hmc_metric():
     assert "generator_state" not in state
     with pytest.raises(ValueError, match="neither"):
         driver_state_from_numpy({k: v for k, v in arrays.items() if k != "key"})
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the samplers' device path runs on the card only")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["stretch", "hmc"])
-def test_block_stays_on_the_card(cuda, kind):
-    """A block of steps on the card reads nothing back to the host, and the
-    driver runs there by default."""
-    mean = torch.as_tensor(MEAN, device=cuda)
-    sigma = torch.as_tensor(SIGMA_DRIVER, device=cuda)
-
-    def lp(x):
-        return -0.5 * (((x - mean) / sigma) ** 2).sum(-1)
-
-    driver = MCMCDriver(logp=lp, ndim=3, nwalkers=16, rhat_tol=-1.0, block=10,
-                        sampler_kind=kind, n_leapfrog=4, warmup_steps=10)
-    res = driver.run(seed=0, x0=np.zeros(3), max_steps=10)   # warmup, compiled paths
-    assert res.chain.shape == (10, 16, 3) and np.all(np.isfinite(res.logps))
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    walkers = torch.as_tensor(res.chain[-1], device=cuda)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        chain, logps, acc = driver.sampler.run(gen, walkers, 5)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    assert chain.is_cuda and chain.shape == (5, 16, 3)
-    assert bool(torch.isfinite(logps).all())

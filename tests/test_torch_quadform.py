@@ -22,13 +22,6 @@ def data():
                  [(W, N, S), (W, N, S), (BL, N, N), (BL, N, N)])
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels are built and run on the card only")
-    return torch.device("cuda")
-
-
 def t(x, dtype=torch.float64):
     return torch.as_tensor(np.asarray(x), dtype=dtype)
 
@@ -165,7 +158,9 @@ def test_wrappers_refuse_cpu_tensors_and_count_nothing(data):
     assert tq.LAUNCHES == {"qf_real": 0, "cf_half": 0} and not tq.LAUNCHES_BY_SHAPE
 
 
-@pytest.mark.parametrize("n, multiple, n_padded", [(33, 8, 40), (255, 8, 256), (32, 8, 32)])
+@pytest.mark.parametrize("n, multiple, n_padded", [
+    (33, 8, 40), (255, 8, 256), (32, 8, 32),
+    (33, 16, 48), (255, 16, 256), (257, 16, 272)])  # 16: the float64 kernels' pad
 def test_tril_fold_keeps_the_quadratic_forms(n, multiple, n_padded):
     """The layout the kernels read: lower triangular, zero-padded, and the
     same forms as the full matrix — zᵀ L z = zᵀ M z, and both outputs of the
@@ -293,30 +288,101 @@ def test_cf_contract_with_prepared_layouts():
     assert torch.equal(tq.cf_contract(zr, zi, mr, mi, lays), tq.cf_contract(zr, zi, mr, mi))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(12, 33, 10, 7), (3, 255, 80, 11), (3, 257, 80, 11)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernels_match_plain_on_card(cuda, dtype, shape):
-    """float32 (3xTF32 tensor cores): rtol 2e-4 + 2e-3·max|ref| against the
-    float64 plain version; float64: 1e-10 (an indexing fault fails this,
-    rounding does not).  The ragged shape of tests/test_quadform.py and the
-    flagship's N = 255 / 257; the layout made once (``kernel_matrices``) and
-    the one made on the fly give bitwise the same result."""
-    nw, n, s, bl = shape
-    rng = np.random.default_rng(n)
-    zr, zi, mr = (torch.as_tensor(rng.standard_normal(sh), dtype=dtype, device=cuda)
-                  for sh in [(nw, n, s), (nw, n, s), (bl, n, n)])
-    tol = dict(rtol=2e-4, atol=2e-3) if dtype == torch.float32 else dict(rtol=1e-10, atol=1e-10)
-    tq.reset_launch_counts()
-    ref = tq.qf_real_plain(zr.double(), mr.double())
-    got = tq.quad_form_real(zr, mr).double()
-    assert torch.allclose(got, ref, rtol=tol["rtol"], atol=tol["atol"] * float(ref.abs().max()))
-    lay = tq.kernel_matrices(mr)
-    assert torch.equal(tq.quad_form_real(zr, mr, lay).double(), got)
-    r1, r2 = tq.cf_half_plain(mr.double(), zr.double(), zi.double())
-    g1, g2 = tq.cf_half_cuda(mr, zr, zi)
-    for g, r in ((g1, r1), (g2, r2)):
-        assert torch.allclose(g.double(), r, rtol=tol["rtol"], atol=tol["atol"] * float(r.abs().max()))
-    p1, p2 = tq.cf_half_cuda(mr, zr, zi, lay)
-    assert torch.equal(p1, g1) and torch.equal(p2, g2)
-    assert tq.LAUNCHES == {"qf_real": 2, "cf_half": 2}
+def _kernel_constants():
+    """RB, KT, PAD, TP of the float64 kernels, read from their source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tq.__file__).parent.parent / "csrc" / "quadform.cu").read_text()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("RB", "KT", "PAD", "TP")}
+
+
+def _dmma_schedule(lay, z0, z1=None):
+    """The float64 kernels' schedule (csrc/quadform.cu) in float64 torch.
+
+    Columns j = w * S + s in tiles of TP product columns (qf_real: TP of w;
+    cf_half: TP / 2 of zr beside the same of zi), zero-filled past N and past
+    W * S; per tile and b, row blocks of RB rows of the fold L, each against
+    the depths left of and on its diagonal block in stages of KT depths, a
+    stage in m16n8k16 steps of 16, steps 0, 1 to the first depth half of
+    the warps and 2, 3 to the second; a 16-row tile is skipped at a step
+    right of its diagonal (checked to hold only zeros of L); when a row
+    block ends each half multiplies its part of V by z and sums over the
+    rows; per b the second half's sums are added to the first's."""
+    k = _kernel_constants()
+    rb, kt, tp = k["RB"], k["KT"], k["TP"]
+    nz = 1 if z1 is None else 2
+    nw, n, s = z0.shape
+    bl, np_, _ = lay.shape
+    tj, ncol = tp // nz, nw * s
+    assert np_ % k["PAD"] == 0 and np_ >= n
+    zc = [z.permute(1, 0, 2).reshape(n, ncol) for z in ((z0,) if nz == 1 else (z0, z1))]
+    outs = [torch.zeros(bl, ncol, dtype=torch.float64) for _ in range(nz)]
+    skipped = 0
+    for ct in range(-(-ncol // tj)):
+        j0, j1 = ct * tj, min(ncol, (ct + 1) * tj)
+        ws = torch.zeros(np_, tp, dtype=torch.float64)  # the resident tile
+        for p in range(nz):
+            ws[:n, p * tj:p * tj + j1 - j0] = zc[p][:, j0:j1]
+        for b in range(bl):
+            sums = torch.zeros(2, nz, tj, dtype=torch.float64)  # [depth half][output][column]
+            for h in range(-(-np_ // rb)):
+                dend = min(np_, rb * (h + 1))
+                nti = min(rb // 16, (np_ - rb * h) // 16)
+                v = torch.zeros(2, rb, tp, dtype=torch.float64)  # each half's part of V
+                for m0 in range(0, dend, kt):
+                    for ks in range(kt // 16):
+                        d = m0 + 16 * ks
+                        if d >= dend:
+                            break
+                        i0 = max(0, d - rb * h) // 16
+                        for i in range(nti):
+                            rows = slice(rb * h + 16 * i, rb * h + 16 * i + 16)
+                            blk = lay[b, rows, d:d + 16]
+                            if i < i0:
+                                assert not blk.any()
+                                skipped += 1
+                                continue
+                            v[ks // (kt // 32), 16 * i:16 * i + 16] += blk @ ws[d:d + 16]
+                zt = ws[rb * h:rb * h + 16 * nti]
+                for half in range(2):
+                    vh = v[half, :16 * nti]
+                    if nz == 1:
+                        sums[half, 0] += (zt * vh).sum(0)
+                    else:
+                        zr, zi, vr, vi = zt[:, :tj], zt[:, tj:], vh[:, :tj], vh[:, tj:]
+                        sums[half, 0] += (zr * vr - zi * vi).sum(0)
+                        sums[half, 1] += (zr * vi + zi * vr).sum(0)
+            for p in range(nz):
+                outs[p][b, j0:j1] = (sums[0, p] + sums[1, p])[:j1 - j0]
+    res = tuple(o.reshape(bl, nw, s).permute(1, 0, 2) for o in outs)
+    return (res[0] if nz == 1 else res), skipped
+
+
+@pytest.mark.parametrize("n", [33, 255, 257])
+def test_float64_kernel_schedule_covers_the_triangle(n):
+    """The walk of the float64 DMMA kernels over the lower triangle (row
+    blocks, stages, the k16 steps dealt to the two depth halves, 16-row tiles
+    skipped right of the diagonal, the pad to a multiple of 16), emulated in
+    float64, gives qf_real and both cf_half outputs of the plain versions to
+    1e-12 relative; W * S = 3 * 30 = 90 is not a multiple of either column
+    tile (64 of w, 32 of [zr | zi]), and the skipped tiles hold only zeros."""
+    rng = np.random.default_rng(n + 7)
+    nw, s, bl = 3, 30, 2
+    m = t(rng.standard_normal((bl, n, n)))
+    zr, zi = (t(rng.standard_normal((nw, n, s))) for _ in range(2))
+    pad = _kernel_constants()["PAD"]
+    lay = tq.tril_fold(m, pad)
+    assert lay.shape[-1] == -(-n // pad) * pad
+
+    def close(got, want):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12 * float(want.abs().max()))
+
+    got, skipped = _dmma_schedule(lay, zr)
+    close(got, tq.qf_real_plain(zr, m))
+    assert skipped > 0
+    (g1, g2), _ = _dmma_schedule(lay, zr, zi)
+    r1, r2 = tq.cf_half_plain(m, zr, zi)
+    close(g1, r1)
+    close(g2, r2)
