@@ -92,14 +92,33 @@ Phases, each printing one JSON line:
    analysis on the ``emulator`` provider (a transfer-function MLP file
    written here with NumPy in the JAX package's ``TransferEmulator.save``
    layout, seeded weights) against its float64 plain path (|dlogp| < 0.02).
+10. ``solver`` — the Einstein-Boltzmann solver (``boltzmann/thermo.py``,
+   ``boltzmann/einstein_boltzmann.py``, kernels ``recomb_scan`` and
+   ``eb_solve`` of ``csrc/boltzmann.cu``): (c) the full-width solve of the
+   JAX solver's golden sample (``tests/goldens/solver_sample_4d_heldout.npz``:
+   13 z × 288 k, the schedule over the corners of the box the golden was
+   made with, the golden's cosmology in one slot of a W=4 batch of seeded
+   cosmologies of that box), |Δ log T| ≤ 1e-6 and |Δ log r_drag| ≤ 1e-7; (a)
+   ``recomb_scan`` against its plain version (W=4, a 4096-point grid,
+   relative error ≤ 1e-10); (b) ``eb_solve`` against its plain version
+   (W=2, the two shortest buckets of today's training recipe and one mode of
+   the longest cut to 1,500 steps, TCA and post-TCA steps, ≤ 1e-9 of the
+   largest |value| of δ_m, δ_cb and ζ_ini); (e) seconds per solve at W=1, 4,
+   16 and 64 on today's training recipe (the wide box), each kernel's time
+   alone, its bound (float64 operations counted from the source at the
+   card's 34 TFLOP/s float64 rate; beside it a model of the longest mode's
+   critical path, one float64 operation a cycle, in this line only); (d) a float32 LRG ``Analysis`` on the ``solver`` provider at W=4:
+   finite ``logp`` and the launches of ``eb_solve``, ``recomb_scan`` and
+   ``qf_real`` in one ``logp`` call.
 With ``--against DIR`` the ``against`` line follows ``kernel_checks``: another
 ``quadform.cu`` with the same C interface (for example the parent commit's,
 copied into a git-ignored directory) is built there and its float64 kernels
 are checked and timed beside this tree's at the timed float64 shapes, in
 turns (theirs, ours, ours, theirs) on the same inputs.
 
-10. ``kernels`` line (launches by path; every kernel instance, float32 and
-   float64 ``qf_real`` and ``cf_half``, must appear), the card's
+11. ``kernels`` line (launches by path; every kernel instance, float32 and
+   float64 ``qf_real`` and ``cf_half``, ``eb_solve`` and ``recomb_scan``,
+   must appear), the card's
    ``nvidia-smi`` line, and the final ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises: the exit code is then non-zero and no final line is
@@ -109,6 +128,7 @@ printed.  Imports nothing but the port (``eftpipe_tpu_torch``), torch, numpy.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -130,6 +150,7 @@ from eftpipe_tpu_torch.boltzmann.eh98 import eh98_pk
 from eftpipe_tpu_torch.likelihood.covariance import GaussianCovariance, Multipole
 from eftpipe_tpu_torch.boltzmann.eh98 import eh98_transfer
 from eftpipe_tpu_torch.boltzmann.emulator import SolverEmulatorProvider, TransferEmulator
+from eftpipe_tpu_torch.boltzmann import _kernels as bk, einstein_boltzmann as eb, thermo
 from eftpipe_tpu_torch.likelihood.parambasis import WestCoastBasis
 from eftpipe_tpu_torch.models.ap import lcdm_da, lcdm_hubble
 from eftpipe_tpu_torch.models.config import EFTConfig
@@ -1403,6 +1424,349 @@ def analysis_phase(lines: list) -> dict:
             "analysis_emulator": by_shape_emu}
 
 
+# ---------------------------------------------------------------------------
+# the Einstein-Boltzmann solver (phase 10)
+# ---------------------------------------------------------------------------
+# float64 operations of one step, counted in the kernels' source
+# (csrc/boltzmann.cu; adds, multiplies, divides and comparisons once each,
+# pow/exp/sqrt once each): recomb_scan ~225 a fine-grid step (two T_M steps,
+# three Peebles rates, two implicit solves); eb_solve ~5,700 an RK4 step
+# (four right-hand sides of ~840: the metric ~50, photons and polarization
+# ~225, massless neutrinos ~115, massive neutrinos ~440; the RK4 sums ~2,200
+# over 100 state entries; two table interpolations ~130)
+RECOMB_OPS_PER_STEP = 225
+EB_OPS_PER_STEP = 5700
+# the rate at which the solver line models one thread's critical path (a
+# model, not a measurement; the kernels line carries no such figure): one
+# float64 operation a cycle (a warp's FMA, two operations, takes two cycles on a
+# sub-partition's 16 float64 lanes), at the H100 SXM boost clock
+SM_CLOCK_HZ = 1.98e9
+SOLVER_REL_BUDGET = {"recomb_scan": 1e-10, "eb_solve": 1e-9}
+# the box whose corners built the schedule of tests/goldens/
+# solver_sample_4d_heldout.npz: tools/train_solver_emulator.py as it stood
+# when the golden was committed (fa209b6; the box was widened later to
+# today's BOX_BOUNDS), with the per-species mass axis (0, 0.1) eV
+GOLDEN_BOX = {"omega_b": (0.017, 0.029), "omega_cdm": (0.05, 0.30), "h": (0.50, 0.90)}
+GOLDEN_W, GOLDEN_SLOT = 4, 2  # the golden solved in slot 2 of a batch of the main path's W
+GOLDEN_LOG_T_BUDGET = 1e-6
+GOLDEN_LOG_RDRAG_BUDGET = 1e-7
+SOLVER_SOURCE = "eftpipe_tpu_torch/csrc/boltzmann.cu"
+SOLVE_BATCHES = (1, 4, 16, 64)  # cosmologies per timed solve; 4: the provider's batch in (d)
+SOLVER_REPLACES = {
+    "recomb_scan": "eftpipe_tpu/boltzmann/thermo.py:317 (lax.scan of _thermo_on_grid; no Pallas)",
+    "eb_solve": "eftpipe_tpu/boltzmann/einstein_boltzmann.py:563 (lax.scan of solve_k; no Pallas)",
+}
+
+
+def box_draws(n: int, seed: int, bounds: dict = eb.BOX_BOUNDS) -> np.ndarray:
+    """(n, 4) seeded cosmologies (ω_b, ω_cdm, h, m_ncdm) inside a box
+    (``bounds``: its (ω_b, ω_cdm, h) ranges; the training box unless
+    given), away from its edges."""
+    rng = np.random.default_rng(seed)
+    lo = np.array([bounds[k][0] for k in ("omega_b", "omega_cdm", "h")] + [eb.BOX_MNU_BOUNDS[0]])
+    hi = np.array([bounds[k][1] for k in ("omega_b", "omega_cdm", "h")] + [eb.BOX_MNU_BOUNDS[1]])
+    return lo + (hi - lo) * (0.1 + 0.8 * rng.random((n, 4)))
+
+
+def box_batch(x: np.ndarray):
+    return eb.box_params(*(torch.as_tensor(x[:, i], dtype=torch.float64, device="cuda")
+                           for i in range(4)), device="cuda")
+
+
+def timed(fn, warmup: int = 0):
+    """(result, ms) of one call of ``fn`` by CUDA events, after ``warmup``
+    calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def rel_err(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def eb_bound(mode_steps: int, longest: int, nbytes: int) -> dict:
+    t_ops = mode_steps * EB_OPS_PER_STEP / FMA_FLOPS[torch.float64] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=mode_steps * EB_OPS_PER_STEP, bytes_min=nbytes,
+                critical_path_steps=longest,
+                critical_path_model_ms=longest * EB_OPS_PER_STEP / SM_CLOCK_HZ * 1e3)
+
+
+def recomb_bound(nw: int, n: int) -> dict:
+    t_ops = nw * n * RECOMB_OPS_PER_STEP / FMA_FLOPS[torch.float64] * 1e3
+    nbytes = 8 * (8 * nw * n + nw)  # five (W, n) inputs and f_He in, three (W, n) out
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=nw * n * RECOMB_OPS_PER_STEP, bytes_min=nbytes, critical_path_steps=n,
+                critical_path_model_ms=n * RECOMB_OPS_PER_STEP / SM_CLOCK_HZ * 1e3)
+
+
+def eb_bytes(tab, dsched: dict, nz: int, nk: int) -> int:
+    nw = tab.stacked.shape[0]
+    sched = sum(t.numel() * t.element_size() for t in dsched.values())
+    return tab.stacked.numel() * 8 + sched + 8 * (2 * nw * nz * nk + nw * nk)
+
+
+def solver_check_recomb(nw: int = 4, n_fine: int = 4096) -> dict:
+    """(a): recomb_scan against its plain version on the card."""
+    par = box_batch(box_draws(nw, seed=11))
+    bg = thermo.background_tables(par, n_grid=n_fine)
+    ins = thermo.recomb_inputs(par, bg)
+    dlna = float(bg.lna[1] - bg.lna[0])
+    got, ms = timed(lambda: thermo.recomb_scan_cuda(*ins, dlna), warmup=1)
+    ref, plain_ms = timed(lambda: thermo.recomb_scan_plain(*ins, dlna))
+    err = max(float(((g - r).abs() / r.abs()).max()) for g, r in zip(got, ref))
+    row = dict(W=nw, n=n_fine, max_rel_err=err, budget=SOLVER_REL_BUDGET["recomb_scan"],
+               ms=ms, plain_ms=plain_ms, max_abs_err=max(float((g - r).abs().max())
+                                                         for g, r in zip(got, ref)))
+    row.update(recomb_bound(nw, n_fine))
+    return row
+
+
+def solver_check_eb(solver, nw: int = 2, cut: int = 1500) -> dict:
+    """(b): eb_solve against its plain version on the card: all modes of the
+    two shortest buckets, plus one mode of the longest bucket cut to its
+    first ``cut`` steps (its outputs then sit at the cut)."""
+    par = box_batch(box_draws(nw, seed=12))
+    _, _, tab = solver.tables(par)
+    idx, grids, masks, _ = solver.buckets[-1]
+    gcut, mcut = grids[:1, :cut + 1], masks[:1, :cut + 1]
+    buckets = list(solver.buckets[:2]) + [
+        (idx[:1], gcut, mcut, eb.out_indices(gcut, solver.lna_out))]
+    sel = np.concatenate([b[0] for b in buckets])
+    k = solver.k_mpc
+    dsched = eb.kernel_schedule(k, buckets).to("cuda")
+    got, ms = timed(lambda: eb.eb_solve_cuda(tab, dsched, len(k)), warmup=1)
+
+    def plain():
+        return [eb.eb_solve_plain(tab, k[b[0]], b[1], b[2], b[3]) for b in buckets]
+
+    ref, plain_ms = timed(plain)
+    ref_dm = torch.cat([r.delta_m for r in ref], -1)
+    ref_dcb = torch.cat([r.delta_cb for r in ref], -1)
+    ref_z = torch.cat([r.zeta_ini for r in ref], -1)
+    s = torch.as_tensor(sel, device="cuda")
+    errs = dict(delta_m=rel_err(got.delta_m[..., s], ref_dm),
+                delta_cb=rel_err(got.delta_cb[..., s], ref_dcb),
+                zeta_ini=rel_err(got.zeta_ini[..., s], ref_z))
+    steps = int(eb.kernel_schedule(k, buckets).steps.sum())
+    return dict(W=nw, modes=int(sel.size), mode_steps=steps * nw,
+                cut_mode_tca_steps=int(mcut[0, :-1].sum()),
+                cut_mode_post_tca_steps=int((~mcut[0, :-1]).sum()),
+                max_rel_err=errs, budget=SOLVER_REL_BUDGET["eb_solve"], ms=ms, plain_ms=plain_ms,
+                max_abs_err=max(float((got.delta_m[..., s] - ref_dm).abs().max()),
+                                float((got.delta_cb[..., s] - ref_dcb).abs().max()),
+                                float((got.zeta_ini[..., s] - ref_z).abs().max())))
+
+
+def golden_solver() -> "eb.EBSolver":
+    """The golden's recipe: ``box_solver``'s, with the schedule built over
+    the corners of ``GOLDEN_BOX`` (the box the golden was made with)."""
+    axes = [GOLDEN_BOX["omega_b"], GOLDEN_BOX["omega_cdm"], GOLDEN_BOX["h"], eb.BOX_MNU_BOUNDS]
+    corners = [eb.CosmoParams(omega_b=c[0], omega_cdm=c[1], h=c[2], m_ncdm=c[3],
+                              **eb.BOX_NEUTRINO, **eb.BOX_PRIMORDIAL)
+               for c in itertools.product(*axes)]
+    return eb.EBSolver(z_out=eb.BOX_Z_GRID.tolist(), kmax=eb.BOX_KMAX, growth_stencil=False,
+                       envelope=corners, device="cuda")
+
+
+def solver_golden(solver, out_dir=None) -> dict:
+    """(c): the full-width solve against the JAX solver's golden sample, at
+    the main path's batch: the golden's cosmology in slot ``GOLDEN_SLOT`` of
+    a W=4 batch whose other slots are seeded cosmologies of the golden's box
+    (the golden slot's transfers also written to ``out_dir/solver_golden.npz``
+    when given)."""
+    g = np.load(os.path.join(GOLDENS, "solver_sample_4d_heldout.npz"))
+    if not (np.allclose(g["kgrid"], solver.k_mpc, rtol=0, atol=0)
+            and np.allclose(g["zgrid"], solver.z_out, rtol=1e-15, atol=0)):
+        raise SystemExit("chip_smoke: solver: k or z grid differs from the golden's")
+    x = box_draws(GOLDEN_W, seed=14, bounds=GOLDEN_BOX)
+    x[GOLDEN_SLOT] = g["x"]
+    with torch.no_grad():
+        lp = solver(box_batch(x))
+    log_tm, log_tcb = eb.log_transfers(lp)
+    tm, tcb = log_tm[GOLDEN_SLOT].cpu().numpy(), log_tcb[GOLDEN_SLOT].cpu().numpy()
+    log_rd = float(torch.log(lp.rs_drag[GOLDEN_SLOT]))
+    d_tm = float(np.abs(tm - g["log_tm"]).max())
+    d_tcb = float(np.abs(tcb - g["log_tcb"]).max())
+    d_rd = abs(log_rd - float(g["log_rdrag"]))
+    if out_dir:
+        np.savez(os.path.join(out_dir, "solver_golden.npz"), log_tm=tm, log_tcb=tcb,
+                 log_rdrag=log_rd)
+    return dict(x=g["x"].tolist(), W=GOLDEN_W, slot=GOLDEN_SLOT, max_abs_dlog_tm=d_tm,
+                max_abs_dlog_tcb=d_tcb, abs_dlog_rdrag=d_rd, budget_log_t=GOLDEN_LOG_T_BUDGET,
+                budget_log_rdrag=GOLDEN_LOG_RDRAG_BUDGET,
+                finite=bool(torch.isfinite(log_tm).all() and torch.isfinite(log_tcb).all()
+                            and torch.isfinite(lp.rs_drag).all()),
+                ok=d_tm <= GOLDEN_LOG_T_BUDGET and d_tcb <= GOLDEN_LOG_T_BUDGET
+                and d_rd <= GOLDEN_LOG_RDRAG_BUDGET)
+
+
+def solver_analysis_config(workdir: str) -> dict:
+    """One LRG tracer of ``analysis_config`` on the ``solver`` provider."""
+    info = analysis_config(workdir)
+    tr = info["theory"]["tracers"]
+    solver = {"name": "solver", "om_fid": tr["default"]["boltzmann"]["om_fid"]}
+    info["theory"]["tracers"] = {"default": dict(tr["default"], boltzmann=solver),
+                                 "LRG": tr["LRG"]}
+    info["params"] = {k: v for k, v in info["params"].items() if not k.startswith("ELG_")}
+    like = info["likelihood"]
+    like["tracers"] = ["LRG"]
+    like["data"] = {"LRG": like["data"]["LRG"]}
+    like["cov"] = os.path.join(workdir, "cov.txt")
+    like.pop("chained", None)
+    like["marg"] = {"LRG_": like["marg"]["LRG_"]}
+    return info
+
+
+def solver_analysis(nw: int) -> tuple[dict, dict]:
+    """(d): a float32 LRG analysis on the solver provider, its launches."""
+    workdir = os.path.join(WORKDIR, "solver")
+    os.makedirs(workdir, exist_ok=True)
+    info = solver_analysis_config(workdir)
+    if not os.path.exists(os.path.join(workdir, "cov.txt")):
+        th = Analysis.from_config({k: v for k, v in info.items() if k != "likelihood"},
+                                  dtype=torch.float64, device="cuda", quadform="plain")
+        fid = th.space.to_dict(th.space.theta0())
+        with torch.no_grad():
+            ls, _, plk = th.nonlinear_Plk_grid("LRG", fid, binned=True, kout=ANALYSIS_KOUT)
+        plk = plk.double().cpu().numpy()
+        np.savetxt(os.path.join(workdir, "data_LRG.txt"),
+                   np.column_stack([ANALYSIS_KOUT] + [plk[i] for i in range(len(ls))]),
+                   header="k " + " ".join(f"P{l}" for l in ls))
+        kedges = np.concatenate([ANALYSIS_KOUT - 0.0025, [ANALYSIS_KOUT[-1] + 0.0025]])
+        mp = Multipole(p0=plk[0] + 1 / 5e-5 + 1e3, p2=plk[1], p4=plk[2])
+        np.savetxt(os.path.join(workdir, "cov.txt"),
+                   GaussianCovariance(kedges, volume=4.0)(ls, ls, "aa->aaaa", mp))
+    an = Analysis.from_config(info, dtype=torch.float32, device="cuda")
+    theta0 = np.asarray(an.space.theta0(), np.float64)
+    rng = np.random.default_rng(13)
+    thetas = theta0[None] * (1.0 + 1e-2 * rng.standard_normal((nw, theta0.size)))
+    th = torch.as_tensor(thetas, dtype=torch.float32, device="cuda")
+    an.logp(th)  # warm-up: builds, tables on the card
+    torch.cuda.synchronize()
+    qf.reset_launch_counts()
+    bk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lp = an.logp(th)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(eb_solve=bk.LAUNCHES["eb_solve"], recomb_scan=bk.LAUNCHES["recomb_scan"],
+                  qf_real=qf.LAUNCHES["qf_real"], cf_half=qf.LAUNCHES["cf_half"])
+    by_shape = dict(qf.LAUNCHES_BY_SHAPE)
+    lp_np = lp.double().cpu().numpy()
+    return dict(W=nw, dtype="float32", logp=lp_np.tolist(), finite=bool(np.isfinite(lp_np).all()),
+                logp_seconds=seconds, launches=counts), by_shape
+
+
+def solver_phase(lines: list, out_dir=None) -> dict:
+    """Phase 10: the Einstein-Boltzmann solver.  Returns the launches of its
+    paths, the ``qf_real`` shapes of its analysis and its kernels' rows."""
+    t_phase = time.perf_counter()
+    out, by_path = {}, {}
+    # (c) first: the golden's recipe (the envelope over the corners of the
+    # box it was made with) at full width and the main path's W; its
+    # launches are a path
+    with torch.no_grad():
+        gsolver = golden_solver()
+        bk.reset_launch_counts()
+        out["golden"] = solver_golden(gsolver, out_dir)
+        by_path["solver_golden"] = dict(bk.LAUNCHES)
+        del gsolver
+        # the training recipe's solver today (the wide box): (b) and (e)
+        t0 = time.perf_counter()
+        solver = eb.box_solver(device="cuda")
+    sched = solver.schedule()
+    out["build_seconds"] = time.perf_counter() - t0
+    out["schedule"] = dict(box={k: list(v) for k, v in eb.BOX_BOUNDS.items()},
+                           modes=int(sched.k.size), buckets=len(solver.buckets),
+                           longest_mode_steps=int(sched.steps.max()),
+                           mode_steps=int(sched.steps.sum()),
+                           padded_mode_steps=int(sum(b[1].shape[0] * (b[1].shape[1] - 1)
+                                                     for b in solver.buckets)))
+
+    # (a), (b): each kernel against its plain version (launches uncounted)
+    out["recomb_check"] = solver_check_recomb()
+    out["eb_check"] = solver_check_eb(solver)
+
+    # (e): seconds per solve at W = 1, 16, 64, and each kernel alone
+    times = {}
+    bk.reset_launch_counts()
+    for nw in SOLVE_BATCHES:
+        par = box_batch(box_draws(nw, seed=100 + nw))
+        with torch.no_grad():
+            _, solve_ms = timed(lambda: solver(par))
+            bg, th, tab = solver.tables(par)
+            f_bg = thermo.background_tables(par, n_grid=thermo.N_FINE)
+            ins = thermo.recomb_inputs(par, f_bg)
+            dlna = float(f_bg.lna[1] - f_bg.lna[0])
+            _, recomb_ms = timed(lambda: thermo.recomb_scan_cuda(*ins, dlna))
+            dsched = solver.device_schedule("cuda")
+            _, eb_ms = timed(lambda: eb.eb_solve_cuda(tab, dsched, solver.k_mpc.size))
+        nz, nk = solver.lna_out.size, solver.k_mpc.size
+        times[nw] = dict(seconds_per_solve=solve_ms / 1e3, cosmologies_per_s=nw / (solve_ms / 1e3),
+                         eb_solve_ms=eb_ms, recomb_scan_ms=recomb_ms,
+                         eb_solve=eb_bound(int(sched.steps.sum()) * nw, int(sched.steps.max()),
+                                           eb_bytes(tab, dsched, nz, nk)),
+                         recomb_scan=recomb_bound(nw, thermo.N_FINE))
+    by_path["solver_times"] = dict(bk.LAUNCHES)
+    out["times"] = times
+
+    # (d): the solver provider end to end (its launches are the main path's)
+    res, qf_shapes = solver_analysis(4)
+    out["analysis"] = res
+    by_path["solver_analysis"] = {"eb_solve": res["launches"]["eb_solve"],
+                                  "recomb_scan": res["launches"]["recomb_scan"]}
+    smi = nvidia_smi_line()
+    out["nvidia_smi"] = smi
+    out["seconds"] = time.perf_counter() - t_phase
+    lines.append(emit("solver", **out))
+    failed = []
+    rc, ec = out["recomb_check"], out["eb_check"]
+    if not rc["max_rel_err"] <= rc["budget"]:
+        failed.append(f"recomb_scan vs plain {rc['max_rel_err']}")
+    if not all(v <= ec["budget"] for v in ec["max_rel_err"].values()):
+        failed.append(f"eb_solve vs plain {ec['max_rel_err']}")
+    if not (out["golden"]["ok"] and out["golden"]["finite"]):
+        failed.append(f"golden {out['golden']}")
+    if not (res["finite"] and res["launches"]["eb_solve"] > 0
+            and res["launches"]["recomb_scan"] > 0 and res["launches"]["qf_real"] > 0):
+        failed.append(f"analysis {res}")
+    if failed:
+        raise SystemExit(f"chip_smoke: solver: failed {failed}")
+    return dict(by_path=by_path, qf_shapes=qf_shapes, rows=solver_rows(out, by_path))
+
+
+def solver_rows(out: dict, by_path: dict) -> list:
+    """The kernels line's rows of eb_solve and recomb_scan: the time and
+    bound at the main path's shape (the provider's W=4 solve), the plain
+    version's time at the reduced comparison shape of (a)/(b)."""
+    t4 = out["times"][4]
+    rows = []
+    for name, check, bnd, ms in (
+            ("eb_solve", out["eb_check"], t4["eb_solve"], t4["eb_solve_ms"]),
+            ("recomb_scan", out["recomb_check"], t4["recomb_scan"], t4["recomb_scan_ms"])):
+        per_path = {p: c[name] for p, c in by_path.items()}
+        rows.append(dict(
+            name=f"{name}[f64,W=4]", route="cuda", source=SOLVER_SOURCE,
+            replaces=SOLVER_REPLACES[name], launches=sum(per_path.values()),
+            launches_by_path=per_path, max_abs_err=check["max_abs_err"], ms=ms,
+            plain_ms=check["plain_ms"], ms_at_plain_shape=check["ms"],
+            plain_shape={k: check[k] for k in ("W", "n", "modes", "mode_steps") if k in check},
+            bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None))
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -1476,6 +1840,7 @@ def main() -> None:
         timed64 = [(r["kernel"], r["W"], r["N"], r["S"], r["BL"]) for r in rows
                    if r["dtype"] == "f64" and r["W"] >= 64]
         lines.append(emit("against", rows=against_rows(args.against, timed64, gen)))
+    by_path = {}
     if args.quick:
         print(smi)
         print(json.dumps({"ok": True, "quick": True,
@@ -1484,7 +1849,6 @@ def main() -> None:
         return
 
     # ---- the two flagship paths, then the survey-geometry stages ---------
-    by_path = {}
     by_path["main_path"], model, ref_model = flagship_path(
         "main_path", "flagship LRG(nl=3)+ELG(nl=2), nfft_loop=256, window, solver_emulator",
         dict(), nb=args.batch, n_timed=3, chunk_trials=CHUNK_TRIALS, full=True, lines=lines)
@@ -1497,6 +1861,14 @@ def main() -> None:
         chunk_trials=(), full=False, lines=lines)
     stages_check(64, lines)
     by_path.update(analysis_phase(lines))
+    solver = solver_phase(lines, args.out)
+    by_path["solver_analysis"] = solver["qf_shapes"]
+    # the float32 kernels at the shapes the solver's analysis gave them
+    checked = {(r["kernel"], r["dtype"], r["W"], r["N"], r["S"], r["BL"]) for r in rows}
+    for key in sorted(set(solver["qf_shapes"]) - checked):
+        kernel, suffix, nw, n, s_, bl = key
+        rows.append(check_kernel(kernel, f32 if suffix == "f32" else f64, nw, n, s_, bl,
+                                 gen=gen, n_timed=n_timed))
 
     # ---- the kernels line: one row per kernel and shape the paths launched,
     # with the launches of each path and their sum -------------------------
@@ -1517,6 +1889,10 @@ def main() -> None:
             if not any(r["name"].startswith(f"{kernel}[{suffix},") for r in out_rows):
                 raise SystemExit(f"chip_smoke: kernel {kernel} ({suffix}) was not launched "
                                  f"on any path")
+    for row in solver["rows"]:
+        if row["launches"] <= 0:
+            raise SystemExit(f"chip_smoke: kernel {row['name']} was not launched on any path")
+    out_rows += solver["rows"]
     print(json.dumps({"kernels": out_rows}), flush=True)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

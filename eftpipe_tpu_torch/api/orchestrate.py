@@ -23,8 +23,8 @@ defaults to float32, as the JAX CLI), the device (the card unless
 ``device="cpu"``) and the quadratic forms' route ("kernel", "plain", or
 "lowrank" with its cut and CF premix: the JAX package's
 ``EFTPIPE_TPU_LOWRANK*`` / ``EFTPIPE_TPU_CF_PREMIX``); ``run_mcmc`` seeds a
-``torch.Generator``.  The ``solver`` provider raises ``NotImplementedError``
-naming its ROADMAP item (A8); ``mesh=`` raises naming A13.
+``torch.Generator``; the ``solver`` provider solves on the analysis' device
+(float64, cast to the analysis' dtype); ``mesh=`` raises naming A13.
 """
 
 from __future__ import annotations
@@ -237,11 +237,13 @@ def build_tracer(
     else:
         basis = basis_cls(prefix=prefix)
 
-    provider = build_provider(tcfg.get("boltzmann", {"name": "eh98"}), cfg, zeff)
+    provider = build_provider(tcfg.get("boltzmann", {"name": "eh98"}), cfg, zeff, device=device)
     return cfg, pipe, provider, basis
 
 
-def build_provider(bcfg: Mapping[str, Any], cfg: EFTConfig, zeff: float):
+def build_provider(bcfg: Mapping[str, Any], cfg: EFTConfig, zeff: float, device=None):
+    """The cosmology provider of a tracer's ``boltzmann`` block; ``device``
+    is where the ``solver`` provider solves (the card unless ``"cpu"``)."""
     bcfg = dict(bcfg or {})
     name = bcfg.pop("name", "eh98")
     if name == "eh98":
@@ -261,9 +263,16 @@ def build_provider(bcfg: Mapping[str, Any], cfg: EFTConfig, zeff: float):
 
         return EmulatorProvider.load(cfg=cfg, zeff=zeff, **bcfg)
     if name == "solver":
-        raise NotImplementedError(
-            "boltzmann provider 'solver' (the on-device Einstein-Boltzmann "
-            "solver) is not ported yet (ROADMAP A8)")
+        # a full Einstein-Boltzmann solve per evaluation: the Boltzmann-grade
+        # oracle (for gates and training; the emulators are for sampling)
+        from ..boltzmann.einstein_boltzmann import SolverProvider
+
+        om_fid = bcfg.pop("om_fid", None)
+        if om_fid is not None:
+            bcfg.setdefault("da_fid", lcdm_da(om_fid, zeff))
+            bcfg.setdefault("h_fid", lcdm_hubble(om_fid, zeff))
+        bcfg.setdefault("device", device)
+        return SolverProvider(cfg=cfg, zeff=zeff, **bcfg)
     if name == "solver_emulator":
         # trained PCA + polynomial-ridge emulator of the Einstein-Boltzmann
         # solver — the production Boltzmann-grade provider

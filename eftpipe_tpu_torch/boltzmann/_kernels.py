@@ -1,0 +1,73 @@
+"""Loader, checks and launch counters of the solver's CUDA kernels
+(``csrc/boltzmann.cu``: ``recomb_scan`` and ``eb_solve``).
+
+The library is built by :mod:`eftpipe_tpu_torch.ops._build` at the first
+launch, never at import.  Each C function takes its tensors' pointers, then
+its ints, then its doubles, then the stream, enqueues one kernel and returns
+``cudaGetLastError()``; a non-zero code raises here.  ``LAUNCHES`` counts the
+launches of each kernel since the last :func:`reset_launch_counts`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops import _build
+
+LAUNCHES = {"eb_solve": 0, "recomb_scan": 0}
+_FUNCS: dict[str, object] = {}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _fn(name: str, nptr: int, nint: int, ndbl: int):
+    if name not in _FUNCS:
+        lib = _build.load("boltzmann")
+        fn = getattr(lib, f"eft_{name}")
+        fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
+                       + [ctypes.c_double] * ndbl + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.eft_boltzmann_error_string.argtypes = [ctypes.c_int]
+        lib.eft_boltzmann_error_string.restype = ctypes.c_char_p
+        _FUNCS[name] = (lib, fn)
+    return _FUNCS[name]
+
+
+def check(name, t, shape, like) -> None:
+    """``t`` must be a contiguous float64 tensor of ``shape`` on ``like``'s
+    device."""
+    if not isinstance(t, torch.Tensor) or t.device != like.device:
+        raise ValueError(f"{name} must be a tensor on {like.device}")
+    if t.dtype != torch.float64:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected torch.float64")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def no_grad_check(kernel: str, tensors) -> None:
+    """The kernels have no backward: a CUDA input that requires grad raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: no gradient through the CUDA kernel yet (ROADMAP A8.1, the "
+            f"solver's gradient on the card); run the solver under torch.no_grad(), "
+            f"or on the CPU for its plain, differentiable version")
+
+
+def launch(kernel: str, device, *tensors, ints=(), doubles=()) -> None:
+    """Enqueue one launch of ``eft_<kernel>`` on the current stream of
+    ``device``; raises on a CUDA error, counts the launch otherwise."""
+    with torch.cuda.device(device):
+        lib, fn = _fn(kernel, len(tensors), len(ints), len(doubles))
+        code = fn(*(t.data_ptr() for t in tensors), *ints, *doubles,
+                  torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        msg = lib.eft_boltzmann_error_string(code).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {code}: {msg}")
+    LAUNCHES[kernel] += 1

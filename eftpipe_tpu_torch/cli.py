@@ -10,10 +10,13 @@ run          build an Analysis from a config (JSON, or YAML with PyYAML) and
              getdist-style chain output); last line of output is JSON
 bestfit      evaluate/plot the bestfit theory of a finished run
              (upstream script/mkbestfit.py:1-179)
-plot-window, zeff, bench   not ported yet: each exits with a message naming
-             its ROADMAP item
+plot-window  survey-window QA plot (host NumPy; needs matplotlib)
+zeff         effective redshift of a random catalogue (host: the native
+             pair sums, or NumPy); prints one JSON line
+bench        not ported yet: exits 2 with a message naming the benchmark's
+             ROADMAP item
 
-Both ported commands build their analysis on the card unless ``--device
+``run`` and ``bestfit`` build their analysis on the card unless ``--device
 cpu`` is given, in float32 as the JAX CLI does (``--dtype float64`` is the
 counterpart of its x64 switch, for parity runs), with the quadratic forms'
 route of ``--quadform`` (``kernel``, the default; ``plain``; ``lowrank``, the
@@ -30,10 +33,7 @@ import sys
 import numpy as np
 
 _UNPORTED = {
-    "plot-window": "the window QA plot is not ported yet (ROADMAP A7, with tools.py)",
-    "zeff": "the effective-redshift pair count is not ported yet (ROADMAP A7: "
-            "analysis/zeff.py with native/)",
-    "bench": "the port has no benchmark yet (ROADMAP A9)",
+    "bench": "the port has no benchmark yet (ROADMAP: the benchmark PR, after A9)",
 }
 
 
@@ -91,6 +91,50 @@ def cmd_bestfit(args) -> int:
     return 0
 
 
+def cmd_plot_window(args) -> int:
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise SystemExit("eftpipe_tpu_torch plot-window: needs matplotlib, which is not "
+                         "installed") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from .models.config import EFTConfig
+    from .models.window import build_window_tables
+
+    cfg = EFTConfig(nl=args.nl, no=args.nl)
+    wt = build_window_tables(cfg, window_configspace_file=args.mask, nmax=args.nmax)
+    fig, axes = plt.subplots(1, cfg.nl, figsize=(5 * cfg.nl, 4), squeeze=False)
+    mat = np.asarray(wt["wmat"])  # (na, nl, nk, p)
+    for l in range(cfg.nl):
+        ax = axes[0][l]
+        im = ax.imshow(mat[:, l].reshape(-1, mat.shape[-1]), aspect="auto", cmap="RdBu_r")
+        fig.colorbar(im, ax=ax)
+        ax.set_title(f"W(a, k; p), l={2 * l}")
+        ax.set_xlabel("p index")
+        ax.set_ylabel("(a, k) index")
+    fig.savefig(args.output, dpi=150, bbox_inches="tight")
+    print(f"window QA plot written to {args.output}")
+    return 0
+
+
+def cmd_zeff(args) -> int:
+    from .analysis.zeff import effective_redshift
+
+    table = np.loadtxt(args.randoms)
+    ra, dec, z = table[:, 0], table[:, 1], table[:, 2]
+    w = table[:, 3] if table.shape[1] > 3 and not args.unit_weights else None
+    if args.subsample and table.shape[0] > args.subsample:
+        rng = np.random.default_rng(0)
+        idx = rng.choice(table.shape[0], args.subsample, replace=False)
+        ra, dec, z = ra[idx], dec[idx], z[idx]
+        w = w[idx] if w is not None else None
+    zeff = effective_redshift(ra, dec, z, weight=w, omegam=args.omegam,
+                              smin=args.smin, smax=args.smax)
+    print(json.dumps({"zeff": round(float(zeff), 6), "npoints": int(z.size)}))
+    return 0
+
+
 def cmd_unported(args) -> int:
     print(f"eftpipe_tpu_torch {args.command}: {_UNPORTED[args.command]}", file=sys.stderr)
     return 2
@@ -136,6 +180,22 @@ def main(argv=None) -> int:
     p.add_argument("--plot")
     _add_build(p)
     p.set_defaults(func=cmd_bestfit)
+
+    p = sub.add_parser("plot-window", help="survey window QA plot")
+    p.add_argument("mask", help="config-space mask multipole file Q_q(s)")
+    p.add_argument("-o", "--output", default="window.png")
+    p.add_argument("--nl", type=int, default=2)
+    p.add_argument("--nmax", type=int, default=1024)
+    p.set_defaults(func=cmd_plot_window)
+
+    p = sub.add_parser("zeff", help="effective redshift from randoms")
+    p.add_argument("randoms", help="text table: RA DEC z [weight]")
+    p.add_argument("--omegam", type=float, default=0.31)
+    p.add_argument("--smin", type=float, default=25.0)
+    p.add_argument("--smax", type=float, default=150.0)
+    p.add_argument("--subsample", type=int, default=0)
+    p.add_argument("--unit-weights", action="store_true")
+    p.set_defaults(func=cmd_zeff)
 
     for name in _UNPORTED:
         p = sub.add_parser(name, help=f"not ported: {_UNPORTED[name]}")

@@ -17,7 +17,10 @@ them over here, so that both sides compute from IDENTICAL constants:
   tables, frozen templates, providers, bases, likelihood blocks and
   parameter space;
 * :func:`driver_state_from_numpy` — the state of a running chain from an
-  MCMC driver checkpoint, the JAX driver's or the port's.
+  MCMC driver checkpoint, the JAX driver's or the port's;
+* :func:`eb_solver_from_numpy` — an ``EBSolver`` with a JAX solver's
+  schedule (k grid, output times, step buckets), so that both integrate the
+  same steps.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from .likelihood.marginal import MarginalSetup
 from .likelihood.parambasis import find_param_basis
 from .boltzmann.emulator import PkEmulator, TransferEmulator
 from .boltzmann.eh98 import EisensteinHuProvider
+from .boltzmann.einstein_boltzmann import EBSolver
 from .boltzmann.providers import FixedTemplateProvider
 from .models.config import EFTConfig
 from .models.fiber import fiber_tables_to
@@ -290,3 +294,21 @@ def driver_state_from_numpy(arrays) -> dict:
     else:
         raise ValueError("checkpoint holds neither generator_state nor key")
     return state
+
+
+def eb_solver_from_numpy(state: dict, device=None) -> EBSolver:
+    """An ``EBSolver`` from a JAX ``EBSolver``'s state, without recomputing
+    its schedule: ``k_mpc``, ``z_out``, ``lna_out``, ``dlna_f``,
+    ``growth_stencil`` and ``buckets`` (a list of ``(idx, grids, masks,
+    out_idx)``), all NumPy."""
+    solver = EBSolver.__new__(EBSolver)
+    solver.device = resolve_device(device)
+    solver.k_mpc = np.asarray(state["k_mpc"], np.float64)
+    solver.z_out = np.asarray(state["z_out"], np.float64)
+    solver.lna_out = np.asarray(state["lna_out"], np.float64)
+    solver.dlna_f = float(state["dlna_f"])
+    solver.growth_stencil = bool(state["growth_stencil"])
+    solver.buckets = [(np.asarray(i), np.asarray(g), np.asarray(m), np.asarray(o))
+                      for i, g, m, o in state["buckets"]]
+    solver._sched, solver._dsched = None, {}
+    return solver

@@ -82,3 +82,67 @@ def test_block_stays_on_the_card(cuda, kind):
         torch.cuda.set_sync_debug_mode("default")
     assert chain.is_cuda and chain.shape == (5, 16, 3)
     assert bool(torch.isfinite(logps).all())
+
+
+@pytest.mark.gpu
+def test_recomb_scan_matches_plain_on_card(cuda):
+    """``recomb_scan`` (one thread per cosmology walks the Peebles/T_M
+    recurrence) against its plain step loop on the same card inputs: three
+    cosmologies on a 1024-point grid, relative error ≤ 1e-10 (FMA contraction
+    and the card's pow/exp, ~1 ulp an operation); one launch; an input that
+    requires grad is refused (ROADMAP A8.1)."""
+    from eftpipe_tpu_torch.boltzmann import _kernels, thermo
+
+    par = thermo.CosmoParams(
+        omega_b=torch.tensor([0.0224, 0.020, 0.027], dtype=torch.float64, device=cuda),
+        omega_cdm=torch.tensor([0.12, 0.08, 0.25], dtype=torch.float64, device=cuda),
+        h=torch.tensor([0.68, 0.6, 0.8], dtype=torch.float64, device=cuda),
+        ln10As=3.044, ns=0.9649, m_ncdm=0.02, n_ur=0.00641, deg_ncdm=3.0)
+    bg = thermo.background_tables(par, n_grid=1024)
+    ins = thermo.recomb_inputs(thermo.as_batch(par), bg)
+    dlna = float(bg.lna[1] - bg.lna[0])
+    _kernels.reset_launch_counts()
+    got = thermo.recomb_scan(*ins, dlna)
+    assert _kernels.LAUNCHES["recomb_scan"] == 1
+    ref = thermo.recomb_scan_plain(*ins, dlna)
+    for g, r in zip(got, ref):
+        assert float(((g - r).abs() / r.abs()).max()) <= 1e-10
+    with pytest.raises(NotImplementedError, match="A8.1"):
+        thermo.recomb_scan(ins[0].clone().requires_grad_(), *ins[1:], dlna)
+
+
+@pytest.mark.gpu
+def test_eb_solve_matches_plain_on_card(cuda):
+    """``eb_solve`` (one thread per (cosmology, mode), each mode's unpadded
+    schedule) against the plain step loop on the padded buckets: two
+    cosmologies, five modes on coarse schedules with TCA and post-TCA steps,
+    δ_m, δ_cb and ζ_ini within 1e-9 of their largest |value|; one launch."""
+    from eftpipe_tpu_torch.boltzmann import _kernels, einstein_boltzmann as eb, thermo
+
+    par = eb.stack_params([thermo.CosmoParams(omega_b=0.0224, omega_cdm=0.12, h=0.68,
+                                              ln10As=3.044, ns=0.9649, deg_ncdm=3.0),
+                           thermo.CosmoParams(omega_b=0.023, omega_cdm=0.125, h=0.69,
+                                              ln10As=3.0, ns=0.96, deg_ncdm=3.0)], cuda)
+    bg = thermo.background_tables(par, n_grid=2048)
+    th = thermo.thermo_tables(par, bg, n_fine=4096)
+    tab = eb.make_tables(par, bg, th)
+    hb, ht = eb.host_tables(bg, th)
+    ks = np.array([1e-4, 2e-3, 0.01, 0.05, 0.2])
+    lna_out = np.unique(np.log(1.0 / (1.0 + np.array([1.0, 0.5, 0.0]))))
+    raw, rm = eb.build_schedule(ks, hb, ht, lna_out, pad=False, phase_acc=0.5, dlna_max=0.1)
+    buckets = []
+    for idx in eb.bucket_indices([g.size for g in raw]):
+        grids = eb._pad_grids([raw[i] for i in idx])
+        masks = eb._pad_masks([rm[i] for i in idx])
+        buckets.append((idx, grids, masks, eb.out_indices(grids, lna_out)))
+    assert any(m.any() for m in rm) and not all(m.all() for m in rm)
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = eb.eb_solve(tab, ks, buckets)
+    assert _kernels.LAUNCHES["eb_solve"] == 1
+    ref = [eb.eb_solve_plain(tab, ks[b[0]], b[1], b[2], b[3]) for b in buckets]
+    sel = torch.as_tensor(np.concatenate([b[0] for b in buckets]), device=cuda)
+    for name in ("delta_m", "delta_cb", "zeta_ini"):
+        r = torch.cat([getattr(o, name) for o in ref], -1)
+        g = getattr(got, name)[..., sel]
+        assert float((g - r).abs().max() / r.abs().max()) <= 1e-9, name

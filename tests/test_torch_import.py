@@ -35,6 +35,12 @@ _MODULES = [
     "eftpipe_tpu_torch.analysis.chains", "eftpipe_tpu_torch.analysis.multipole",
     "eftpipe_tpu_torch.analysis.bestfit", "eftpipe_tpu_torch.cli",
     "eftpipe_tpu_torch.compat", "eftpipe_tpu_torch.compat.cobaya",
+    "eftpipe_tpu_torch.boltzmann.thermo", "eftpipe_tpu_torch.boltzmann.einstein_boltzmann",
+    "eftpipe_tpu_torch.boltzmann._kernels", "eftpipe_tpu_torch.boltzmann.neutrino",
+    "eftpipe_tpu_torch.boltzmann.bridges", "eftpipe_tpu_torch.analysis.kaiser",
+    "eftpipe_tpu_torch.analysis.convert", "eftpipe_tpu_torch.analysis.zeff",
+    "eftpipe_tpu_torch.native", "eftpipe_tpu_torch.utils.tools",
+    "eftpipe_tpu_torch.utils.profiling",
 ]
 
 
@@ -148,11 +154,14 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
 ])
 def test_unported_options_raise_not_implemented(tmp_path, kwargs, match):
     """What the port still leaves out raises, naming its ROADMAP item: the
-    Einstein-Boltzmann solver provider (A8).  The trained-transfer emulator
-    provider (A7) is ported: it builds from a ``TransferEmulator.save``
-    file and gives the JAX package's provider's inputs (float64, rtol
-    1e-12); so are the survey window, the solver emulator, the dotted
-    window-builder extension point and cross spectra, once listed here."""
+    solver's gradient on the card (A8.1: its kernels refuse an input that
+    requires grad).  The Einstein-Boltzmann solver provider (A8) is ported:
+    ``build_provider`` returns a ``SolverProvider``.  The trained-transfer
+    emulator provider (A7) is ported: it builds from a
+    ``TransferEmulator.save`` file and gives the JAX package's provider's
+    inputs (float64, rtol 1e-12); so are the survey window, the solver
+    emulator, the dotted window-builder extension point and cross spectra,
+    once listed here."""
     from eftpipe_tpu_torch.api.orchestrate import build_provider
     from eftpipe_tpu_torch.models.config import EFTConfig
 
@@ -175,5 +184,19 @@ def test_unported_options_raise_not_implemented(tmp_path, kwargs, match):
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12)
         return
+    import numpy as np
+    from eftpipe_tpu_torch.boltzmann import _kernels
+    from eftpipe_tpu_torch.boltzmann.einstein_boltzmann import SolverProvider
+    from eftpipe_tpu_torch.convert import eb_solver_from_numpy
+
+    # a one-mode schedule, so that nothing is solved or tabulated here
+    grid = np.array([[-12.0, -6.0, 0.0]])
+    solver = eb_solver_from_numpy(dict(
+        k_mpc=[1e-3], z_out=[0.7], lna_out=[np.log(1 / 1.7)], dlna_f=0.02,
+        growth_stencil=False, buckets=[(np.array([0]), grid, grid < -10, np.array([[2]]))]),
+        device="cpu")
+    prov = build_provider(dict(kwargs["boltzmann"], solver=solver, om_fid=0.31), cfg, 0.7,
+                          device="cpu")
+    assert isinstance(prov, SolverProvider) and prov.solver.device.type == "cpu"
     with pytest.raises(NotImplementedError, match=match):
-        build_provider(kwargs["boltzmann"], cfg, 0.7)
+        _kernels.no_grad_check("eb_solve", [torch.zeros(1, requires_grad=True)])

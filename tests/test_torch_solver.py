@@ -1,0 +1,408 @@
+"""The port's Einstein-Boltzmann solver (``boltzmann/thermo.py``,
+``boltzmann/einstein_boltzmann.py``) against the JAX package's, float64, on
+identical NumPy inputs: the background and thermodynamic tables, the step
+schedule (bit for bit), the right-hand side, one RK4 step, short solves of
+low-k modes on schedules coarsened through the JAX ``build_schedule``'s own
+options, the ``solver`` provider on a solver cut to a handful of modes the
+same way in both packages, the derivative of δ_m in ω_cdm (autograd against
+JAX's), and an analysis on the ``solver`` provider.
+
+On the CPU the kernels' plain versions run (``recomb_scan_plain``,
+``eb_solve_plain``).  The recombination recurrence is a Python step loop
+there (~1 ms a step), so the solves use ``n_fine=0`` (the recurrence on the
+background grid) in both packages: each solver module's ``thermo_tables``
+is given ``n_fine=0``, and its ``background_tables`` a ``CUT_GRID``-point
+grid, for the tests that build solvers.  The JAX references are jitted
+(eager, each call dispatches and compiles its operations one by one)."""
+
+import functools
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from eftpipe_tpu.boltzmann import thermo as jt, einstein_boltzmann as je
+from eftpipe_tpu.models.config import EFTConfig as JConfig
+from eftpipe_tpu_torch.boltzmann import thermo as tt, einstein_boltzmann as te, _kernels
+from eftpipe_tpu_torch.convert import eb_solver_from_numpy
+from eftpipe_tpu_torch.models.config import EFTConfig as TConfig
+
+COSMOS = [
+    dict(omega_b=0.02237, omega_cdm=0.12, h=0.6736, ln10As=3.044, ns=0.9649, m_ncdm=0.02,
+         n_ur=0.00641, yhe=0.2454),
+    dict(omega_b=0.025, omega_cdm=0.16, h=0.70, ln10As=3.0, ns=0.96, m_ncdm=0.0,
+         n_ur=0.00641, yhe=0.2454),
+]
+DEG = 3.0
+# the cut solver: a few low-k modes on a coarse schedule (phase steps ×4,
+# ln-a steps ≤ 0.2), identical in both packages
+CUT_K = np.array([1e-4, 1e-3, 2e-3, 3e-3])
+CUT_OPTS = dict(phase_acc=0.9, dlna_max=0.2)
+CUT_GRID = 512  # the background grid of the cut solves, the recombination on it
+# the JAX tables, jitted: compiled once per grid (eager, each call dispatches
+# and compiles its ops one by one)
+JBG = jax.jit(jt.background_tables, static_argnames=("lna_min", "n_grid"))
+JTH = jax.jit(jt.thermo_tables, static_argnames=("n_fine",))
+PARAMS = [dict(omega_b=0.0224, omega_cdm=0.12, h=0.68, ln10As=3.05, ns=0.965),
+          dict(omega_b=0.022, omega_cdm=0.14, h=0.70, ln10As=3.0, ns=0.97)]
+
+
+def jpar(c):
+    return jt.CosmoParams(**{k: jnp.asarray(v) for k, v in c.items()}, deg_ncdm=DEG)
+
+
+def tpar(cs):
+    return tt.CosmoParams(**{k: torch.tensor([c[k] for c in cs], dtype=torch.float64)
+                             for k in cs[0]}, deg_ncdm=DEG)
+
+
+def t(x):
+    return torch.as_tensor(np.array(x), dtype=torch.float64)
+
+
+def close(got, want, rtol, name=""):
+    """|got − want| ≤ rtol (|want| + max|want|): relative, with the table's
+    scale as the floor where a table crosses zero."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * np.abs(want).max(),
+                               err_msg=name)
+
+
+def port_tables(tab):
+    """The JAX ``EBTables`` as the port's, one cosmology."""
+    return te.EBTables(lna=t(tab.lna), dlna=t(tab.dlna), tau=t(tab.tau)[None],
+                       stacked=t(tab.stacked)[None])
+
+
+@pytest.fixture(scope="module")
+def jax_tables():
+    """The JAX tables of the first cosmology on the 4096-point grid, the
+    recombination on it (n_fine=0)."""
+    p = jpar(COSMOS[0])
+    bg = JBG(p)
+    th = JTH(p, bg, n_fine=0)
+    return p, bg, th, je.make_tables(p, bg, th)
+
+
+# ---------------------------------------------------------------------------
+# tables
+# ---------------------------------------------------------------------------
+def test_background_tables_match_jax():
+    got = tt.background_tables(tpar(COSMOS), n_grid=4096)
+    for i, c in enumerate(COSMOS):
+        want = JBG(jpar(c), n_grid=4096)
+        for f in want._fields:
+            g = getattr(got, f).numpy()
+            close(g if f == "lna" else g[i], getattr(want, f), 1e-12, f)
+
+
+def test_thermo_tables_match_jax():
+    par = tpar(COSMOS)
+    got = tt.thermo_tables(par, tt.background_tables(par, n_grid=2048), n_fine=0)
+    for i, c in enumerate(COSMOS):
+        p = jpar(c)
+        want = JTH(p, JBG(p, n_grid=2048), n_fine=0)
+        for f in want._fields:
+            g = getattr(got, f).numpy()
+            close(g if f == "lna" else g[i], getattr(want, f), 1e-10, f)
+
+
+def test_recomb_fine_grid_interpolation():
+    """``thermo_tables`` with a fine grid: the recurrence there, the tables
+    interpolated back (a small fine grid keeps the plain loop short)."""
+    par = tpar(COSMOS[:1])
+    bg = tt.background_tables(par, n_grid=CUT_GRID)
+    got = tt.thermo_tables(par, bg, n_fine=2 * CUT_GRID)
+    p = jpar(COSMOS[0])
+    want = JTH(p, JBG(p, n_grid=CUT_GRID), n_fine=2 * CUT_GRID)
+    for f in ("xe", "tm", "dkappa", "cs2", "rs", "rs_drag", "z_drag", "tau_rec"):
+        close(getattr(got, f).numpy()[0], getattr(want, f), 1e-10, f)
+
+
+# ---------------------------------------------------------------------------
+# the schedule: host NumPy, bit for bit from the same tables
+# ---------------------------------------------------------------------------
+def test_build_schedule_bitwise(jax_tables):
+    _, bg, th, _ = jax_tables
+    k = te.solver_k_grid(1.6)
+    assert np.array_equal(k, je.solver_k_grid(1.6))
+    lna_out = np.unique(np.log(1.0 / (1.0 + np.array([1.0, 0.7, 0.3]))))
+    # one cosmology, and the envelope form (a list of tables)
+    for b, h in ((bg, th), ([bg, bg], [th, th])):
+        gj, mj = je.build_schedule(k, b, h, lna_out, pad=False)
+        gt, mt = te.build_schedule(k, b, h, lna_out, pad=False)
+        assert len(gj) == len(gt)
+        for a, c in zip(gj, gt):
+            np.testing.assert_array_equal(a, c)
+        for a, c in zip(mj, mt):
+            np.testing.assert_array_equal(a, c)
+    lengths = [g.size for g in gj]
+    bj, bt = je.bucket_indices(lengths), te.bucket_indices(lengths)
+    assert len(bj) == len(bt)
+    for a, c in zip(bj, bt):
+        np.testing.assert_array_equal(a, c)
+        grids = je._pad_grids([gj[i] for i in a])
+        np.testing.assert_array_equal(grids, te._pad_grids([gt[i] for i in c]))
+        np.testing.assert_array_equal(je._pad_masks([mj[i] for i in a]),
+                                      te._pad_masks([mt[i] for i in c]))
+        np.testing.assert_array_equal(je.out_indices(grids, lna_out),
+                                      te.out_indices(grids, lna_out))
+    # the port's own host copy of its tables gives the same grids
+    par = tpar(COSMOS[:1])
+    tbg = tt.background_tables(par, n_grid=CUT_GRID)
+    hb, ht = te.host_tables(tbg, tt.thermo_tables(par, tbg, n_fine=0))
+    p = jpar(COSMOS[0])
+    jbg = JBG(p, n_grid=CUT_GRID)
+    g1, _ = je.build_schedule(k[:8], jbg, JTH(p, jbg, n_fine=0), lna_out, pad=False)
+    g2, _ = te.build_schedule(k[:8], hb[0], ht[0], lna_out, pad=False)
+    assert [a.size for a in g1] == [a.size for a in g2]
+
+
+def test_kernel_schedule_reproduces_the_buckets(jax_tables):
+    """The kernel's flattened schedule (each mode unpadded, longest first,
+    outputs clamped to the mode's end) integrates exactly what the padded
+    buckets do: the padding is no-op steps."""
+    _, bg, th, tab = jax_tables
+    lna_out = np.unique(np.log(1.0 / (1.0 + np.array([0.5, 0.0]))))
+    raw, rm = je.build_schedule(CUT_K, bg, th, lna_out, pad=False, **CUT_OPTS)
+    grids, masks = je._pad_grids(raw), je._pad_masks(rm)
+    oidx = je.out_indices(grids, lna_out)
+    sched = te.kernel_schedule(CUT_K, [(np.arange(CUT_K.size), grids, masks, oidx)])
+    assert list(sched.steps) == sorted((g.size - 1 for g in raw), reverse=True)
+    assert np.array_equal(np.sort(sched.order), np.arange(CUT_K.size))
+    ttab = port_tables(tab)
+    padded = te.eb_solve_plain(ttab, CUT_K, grids, masks, oidx)
+    for j, kid in enumerate(sched.order):
+        lo, hi = sched.offsets[j], sched.offsets[j + 1]
+        one = te.eb_solve_plain(ttab, CUT_K[kid:kid + 1], sched.lna[None, lo:hi],
+                                sched.tca[None, lo:hi].astype(bool),
+                                sched.out_idx[j][:, None])
+        assert torch.equal(one.delta_m[..., 0], padded.delta_m[..., kid])
+        assert torch.equal(one.zeta_ini[..., 0], padded.zeta_ini[..., kid])
+
+
+def test_interp_loglog_matches_jax():
+    k = np.geomspace(1e-4, 1.0, 40)
+    pk = 2e4 * k / (1 + (k / 0.02) ** 2.5)
+    k_new = np.geomspace(2e-4, 0.9, 17)
+    np.testing.assert_array_equal(te.interp_loglog(k_new, k, pk), je.interp_loglog(k_new, k, pk))
+
+
+# ---------------------------------------------------------------------------
+# the right-hand side and one step
+# ---------------------------------------------------------------------------
+@jax.jit
+def jax_pointwise(tab, y, k, lna, tca):
+    """The JAX right-hand side at one state, with the TCA projection, δ_m and
+    ζ there (``tca`` enters through ``jnp.where``: one compile for both)."""
+    bgv = je._bgv_at(tab, lna)
+    return (je._rhs(y, k, je._tau_at(tab, lna), bgv, tca), je._tca_project(y, k, bgv),
+            je._delta_m(y, k, bgv), je._zeta(y, k, bgv))
+
+
+@pytest.mark.parametrize("k", [1e-3, 0.05, 0.8])
+def test_rhs_matches_jax(jax_tables, k):
+    _, _, _, tab = jax_tables
+    ttab = port_tables(tab)
+    rng = np.random.default_rng(int(k * 1e4))
+    for lna in (-12.0, -7.0, -2.0):
+        y = rng.standard_normal(te.NSTATE)
+        bgv, tau = te._bgv_tau(ttab, t([lna]))
+        for tca in (True, False):
+            want, proj, dm, zeta = jax_pointwise(tab, jnp.asarray(y), k, lna, tca)
+            got = te._rhs(t(y)[None, None], t([k]), tau, bgv, torch.tensor([tca]))[0, 0]
+            close(got.numpy(), want, 1e-12, f"rhs lna={lna} tca={tca}")
+        close(te._tca_project(t(y)[None, None], t([k]), bgv)[0, 0].numpy(), proj, 1e-12,
+              "tca_project")
+        for a, b in zip(te._delta_m(t(y)[None, None], t([k]), bgv), dm):
+            close(a.numpy()[0, 0], b, 1e-12, "delta_m")
+        close(te._zeta(t(y)[None, None], t([k]), bgv).numpy()[0, 0], zeta, 1e-12, "zeta")
+    yj, zj = jax.jit(je._ic_and_zeta)(tab, k, -14.0)
+    yt, zt = te._ic_and_zeta(ttab, t([k]), t([-14.0]))
+    close(yt[0, 0].numpy(), yj, 1e-12, "ic")
+    close(zt[0, 0].numpy(), zj, 1e-12, "zeta_ini")
+
+
+def test_rk4_advance_matches_jax(jax_tables):
+    _, _, _, tab = jax_tables
+    ttab = port_tables(tab)
+    rng = np.random.default_rng(5)
+    ks = np.array([1e-3, 0.05, 0.8])
+    y = rng.standard_normal((ks.size, te.NSTATE))
+    la, lb = -9.0, -8.98
+    step = jax.jit(je._rk4_advance)
+    for tca in (True, False):
+        got, _ = te._rk4_advance(t(y)[None], t(ks), ttab, t([la] * 3), t([lb] * 3),
+                                 torch.tensor([tca] * 3), torch.tensor([tca] * 3))
+        for i, k in enumerate(ks):
+            want, _ = step(jnp.asarray(y[i]), k, tab, la, lb, tca, tca)
+            close(got[0, i].numpy(), want, 1e-12, f"rk4 k={k} tca={tca}")
+
+
+# ---------------------------------------------------------------------------
+# short solves
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def cut_solvers():
+    """A JAX ``EBSolver`` (one output z) cut to ``CUT_K`` on the coarse
+    schedule, and the port's solver carried across from it by
+    ``eb_solver_from_numpy``; both solver modules' tables on the
+    ``CUT_GRID``-point grid, the recombination on it, for the module's
+    remaining tests."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, tmod in ((je, jt), (te, tt)):
+            bg_fn = functools.partial(tmod.background_tables, n_grid=CUT_GRID)
+            th_fn = functools.partial(tmod.thermo_tables, n_fine=0)
+            if mod is je:  # compiled once for every cosmology (eager, each call recompiles)
+                bg_fn, th_fn = jax.jit(bg_fn), jax.jit(th_fn)
+            mp.setattr(mod, "background_tables", bg_fn)
+            mp.setattr(mod, "thermo_tables", th_fn)
+        js = je.EBSolver(z_out=[0.5], kmax=0.05)
+        # the JAX solver's fiducial cosmology: its schedule's tables
+        fid = jt.CosmoParams(**{k: jnp.asarray(v) for k, v in te.FIDUCIAL.items()})
+        bg = je.background_tables(fid)
+        th = je.thermo_tables(fid, bg)
+        raw, rm = je.build_schedule(CUT_K, bg, th, js.lna_out, pad=False, **CUT_OPTS)
+        js.k_mpc = CUT_K
+        js.buckets = []
+        for idx in je.bucket_indices([g.size for g in raw]):
+            grids = je._pad_grids([raw[i] for i in idx])
+            masks = je._pad_masks([rm[i] for i in idx])
+            js.buckets.append((idx, grids, masks, je.out_indices(grids, js.lna_out)))
+        ts = eb_solver_from_numpy(dict(
+            k_mpc=js.k_mpc, z_out=js.z_out, lna_out=js.lna_out, dlna_f=js.dlna_f,
+            growth_stencil=js.growth_stencil, buckets=js.buckets), device="cpu")
+        yield js, ts
+
+
+@pytest.fixture(scope="module")
+def jax_cut_solve(cut_solvers):
+    """The JAX solve of the cut solver's bucket at the first cosmology, from
+    its ω_cdm through the background, the recombination recurrence and the
+    tables, with its derivative in ω_cdm: one jitted ``jax.jvp``.  For one
+    input, forward mode gives the number ``jax.grad`` does; its trace and
+    compile take half as long as the reverse-mode scan's.  Returns the
+    tables, the solve and the solve's tangent."""
+    js, _ = cut_solvers
+    ((_, grids, masks, oi),) = js.buckets
+    p0 = jpar(COSMOS[0])
+
+    def solve(ocdm):
+        p = p0._replace(omega_cdm=ocdm)
+        bg = jt.background_tables(p, n_grid=CUT_GRID)
+        tab = je.make_tables(p, bg, jt.thermo_tables(p, bg, n_fine=0))
+        return tab, je.solve_perturbations(p, tab, jnp.asarray(js.k_mpc), jnp.asarray(grids),
+                                           jnp.asarray(masks), jnp.asarray(oi))
+
+    x = jnp.asarray(COSMOS[0]["omega_cdm"])
+    (tab, out), (_, dout) = jax.jit(lambda x: jax.jvp(solve, (x,), (jnp.ones_like(x),)))(x)
+    return tab, out, dout
+
+
+def test_solve_and_zeta_track_match_jax(cut_solvers, jax_cut_solve):
+    """The cut solver's bucket (its low-k modes on the coarse schedule), on
+    the tables its solves use."""
+    js, _ = cut_solvers
+    ((_, grids, masks, oi),) = js.buckets
+    ks = js.k_mpc
+    assert masks.any() and not masks.all()  # TCA and post-TCA steps
+    tab, want, _ = jax_cut_solve
+    got = te.solve_perturbations(None, port_tables(tab), ks, grids, masks, oi)
+    close(got.delta_m[0].numpy(), want.delta_m, 1e-9, "delta_m")
+    close(got.delta_cb[0].numpy(), want.delta_cb, 1e-9, "delta_cb")
+    close(got.zeta_ini[0].numpy(), want.zeta_ini, 1e-9, "zeta_ini")
+    zj = je.zeta_track(tab, ks[1], jnp.asarray(grids[1]), jnp.asarray(masks[1]))
+    zt = te.zeta_track(port_tables(tab), ks[1], grids[1], masks[1])
+    close(zt[0].numpy(), zj, 1e-9, "zeta_track")
+
+
+def test_solver_provider_matches_jax(cut_solvers):
+    js, ts = cut_solvers
+    kw = dict(da_fid=1.2, h_fid=1.3, rdrag_fid=147.0, h0_fid=0.68)
+    pj = je.SolverProvider(JConfig(nl=2, no=2), 0.5, solver=js, **kw)
+    pt = te.SolverProvider(TConfig(nl=2, no=2), 0.5, solver=ts, **kw)
+    params = {k: torch.tensor([p[k] for p in PARAMS], dtype=torch.float64) for k in PARAMS[0]}
+    got_in, got_der = pt.inputs(params), pt.derived(params)
+    assert got_in.plin.dtype == torch.float64 and got_in.plin.shape == (2, TConfig().kin.size)
+    for i, p in enumerate(PARAMS):
+        jp = {k: jnp.asarray(v) for k, v in p.items()}
+        want_in, want_der = pj.inputs(jp), pj.derived(jp)
+        for f in ("plin", "f", "qperp", "qpar"):
+            close(getattr(got_in, f)[i].numpy(), getattr(want_in, f), 1e-8, f)
+        for f, v in want_der.items():
+            close(got_der[f][i].numpy(), v, 1e-8, f)
+
+
+def test_solve_gradient_matches_jax_grad(cut_solvers, jax_cut_solve):
+    """d(δ_m / ζ_ini) / d ω_cdm of the cut solve, summed over its modes,
+    through the background, the recombination recurrence, the tables and
+    the solve: autograd of the plain versions against JAX's derivative
+    (``jax_cut_solve``)."""
+    js, _ = cut_solvers
+    ((_, grids, masks, oi),) = js.buckets
+    _, o, do = jax_cut_solve
+    want = jnp.sum(do.delta_m[0] / o.zeta_ini - o.delta_m[0] * do.zeta_ini / o.zeta_ini ** 2)
+    c = COSMOS[0]
+    ocdm = torch.tensor([c["omega_cdm"]], dtype=torch.float64, requires_grad=True)
+    par = tpar([c])._replace(omega_cdm=ocdm)
+    bg = tt.background_tables(par, n_grid=CUT_GRID)
+    tab = te.make_tables(par, bg, tt.thermo_tables(par, bg, n_fine=0))
+    out = te.solve_perturbations(None, tab, js.k_mpc, grids, masks, oi)
+    (got,) = torch.autograd.grad((out.delta_m[0, 0] / out.zeta_ini[0]).sum(), ocdm)
+    assert np.isfinite(float(want)) and float(want) != 0.0
+    np.testing.assert_allclose(got.numpy()[0], float(want), rtol=1e-7)
+
+
+def test_kernel_wrappers_refuse_gradients_naming_a8_1():
+    """No backward through the CUDA kernels: an input that requires grad is
+    refused, naming the ROADMAP item (the check runs before the launch)."""
+    x = torch.zeros(2, requires_grad=True)
+    for kernel in ("eb_solve", "recomb_scan"):
+        with pytest.raises(NotImplementedError, match="A8.1"):
+            _kernels.no_grad_check(kernel, [x])
+        _kernels.no_grad_check(kernel, [x.detach()])
+        with torch.no_grad():
+            _kernels.no_grad_check(kernel, [x])
+
+
+def test_analysis_on_the_solver_provider(cut_solvers, tmp_path):
+    """A port-only config-driven analysis on ``boltzmann: {name: solver}``
+    (the cut solver passed in the block, narrow loop widths): ``logp`` at W=2
+    is finite, in the analysis' float32 (the solve in float64)."""
+    import eftpipe_tpu_torch.api.orchestrate as torch_orch
+
+    _, ts = cut_solvers
+    kout = np.round(np.arange(0.01, 0.2049, 0.005), 6)
+    np.savetxt(tmp_path / "data.txt", np.column_stack([kout, 2e4 / (1 + 30 * kout), 8e3 * kout]),
+               header="k P0 P2")
+    np.savetxt(tmp_path / "cov.txt", np.eye(2 * kout.size) * 25.0)
+    info = {
+        "theory": {"tracers": {"LRG": {
+            "z": 0.5, "nd": 5e-5, "ls": [0, 2], "with_IRresum": True,
+            "with_APeffect": {"Om_AP": 0.31},
+            "boltzmann": {"name": "solver", "solver": ts, "om_fid": 0.31}}}},
+        "params": {"omega_b": 0.02237, "ns": 0.9649, "ln10As": 3.044,
+                   "omega_cdm": {"prior": {"min": 0.10, "max": 0.14}, "ref": 0.12},
+                   "h": {"prior": {"min": 0.62, "max": 0.72}, "ref": 0.6777},
+                   "LRG_b1": {"prior": {"min": 1.0, "max": 4.0}, "ref": 2.2},
+                   "LRG_b2": 0.8, "LRG_b4": 0.8},
+        "likelihood": {"tracers": ["LRG"], "cov": str(tmp_path / "cov.txt"), "binned": True,
+                       "data": {"LRG": {"path": str(tmp_path / "data.txt"), "ls": [0, 2],
+                                        "kmin": 0.02, "kmax": 0.2}},
+                       "marg": {"LRG_": {"b3": {"loc": 0, "scale": 2}}}},
+    }
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch_orch, "EFTConfig", functools.partial(TConfig, nfft_loop=64, nkin=80))
+        an = torch_orch.Analysis.from_config(info, dtype=torch.float32, device="cpu",
+                                             quadform="plain")
+        assert isinstance(an.providers["LRG"], te.SolverProvider)
+        assert np.array_equal(an.providers["LRG"].solver.k_mpc, ts.k_mpc)  # (a copy)
+        theta0 = np.asarray(an.space.theta0())
+        thetas = theta0[None] * (1.0 + 1e-3 * np.array([[0.0] * theta0.size,
+                                                         [1.0] * theta0.size]))
+        lp = an.logp(torch.as_tensor(thetas, dtype=torch.float32))
+    assert lp.dtype == torch.float32 and lp.shape == (2,)
+    assert torch.isfinite(lp).all(), lp
