@@ -101,24 +101,51 @@ Phases, each printing one JSON line:
    cosmologies of that box), |Δ log T| ≤ 1e-6 and |Δ log r_drag| ≤ 1e-7; (a)
    ``recomb_scan`` against its plain version (W=4, a 4096-point grid,
    relative error ≤ 1e-10); (b) ``eb_solve`` against its plain version
-   (W=2, the two shortest buckets of today's training recipe and one mode of
+   (W=2, the two shortest buckets of the 4-D training recipe and one mode of
    the longest cut to 1,500 steps, TCA and post-TCA steps, ≤ 1e-9 of the
    largest |value| of δ_m, δ_cb and ζ_ini); (e) seconds per solve at W=1, 4,
-   16 and 64 on today's training recipe (the wide box), each kernel's time
+   16 and 64 on the 4-D training recipe (``--sample-mnu``: the schedule over
+   the 16 corners of the wide box and the mass axis), each kernel's time
    alone, its bound (float64 operations counted from the source at the
    card's 34 TFLOP/s float64 rate; beside it a model of the longest mode's
    critical path, one float64 operation a cycle, in this line only); (d) a float32 LRG ``Analysis`` on the ``solver`` provider at W=4:
    finite ``logp`` and the launches of ``eb_solve``, ``recomb_scan`` and
    ``qf_real`` in one ``logp`` call.
+11. ``training`` — the shipped P(k) artifact retrained at full width by
+   ``eftpipe_tpu_torch/tools/train_solver_emulator.py``'s library functions
+   (``--n 512 --inner-frac 0.35 --degree 8 --degree-in 7 --ncomp 96``: 512
+   solves of 288 k × 13 z on the envelope of the 3-D box's 8 corners, 64 a
+   call, in a temporary workdir; the PCA + ridge fit and its inner blend),
+   against the package's copy of ``pk_emulator_mnu06.npz``: (a) the
+   normalisations, boxes and blend equal bit for bit; (b) both artifacts'
+   predictions (``PkEmulator.raw``, float64 on the card) at the 51 held-out
+   points and 256 seeded points of the box and the blend region, |Δ log T|
+   ≤ 1e-6 and |Δ log r_drag| ≤ 1e-7; (c) the fit's validation report beside
+   the errors the artifact's commit states; (d) the ``SolverEmulatorProvider``
+   on the retrained file against the shipped one (float64 ``plin`` and
+   ``f`` at 64 seeded points, relative ≤ 1e-6); (e) 8 ``eb_solve`` and 8
+   ``recomb_scan`` launches; (f) seconds by stage and cosmologies/s.
+12. ``transfer_training`` — ``train_transfer_emulator`` at the JAX defaults
+   (2,048 EH98 samples, width 128, depth 3, 3,000 steps, batch 256, lr
+   3e-3) in float32 on the card: max |T_emu/T_EH − 1| < 0.02 at the JAX
+   suite's held-out point on its k grid, the worst of 256 seeded points,
+   steps/s, and a save → ``TransferEmulator.load`` → ``EmulatorProvider``
+   round trip.
+13. ``mesh`` (after ``main_path_lite``, on its model) — a one-rank NCCL
+   group formed on the card: ``MCMCDriver(mesh=walker_mesh())`` (stretch,
+   256 walkers, 4 steps) and ``HMC(mesh=...)`` (16 chains, 5 warmup + 5
+   steps), each equal bit for bit to the same run without the mesh on the
+   same seed; the collectives a step and their share of the step time (the
+   time of one ``all_gather`` of a half-ensemble's values, alone).
 With ``--against DIR`` the ``against`` line follows ``kernel_checks``: another
 ``quadform.cu`` with the same C interface (for example the parent commit's,
 copied into a git-ignored directory) is built there and its float64 kernels
 are checked and timed beside this tree's at the timed float64 shapes, in
 turns (theirs, ours, ours, theirs) on the same inputs.
 
-11. ``kernels`` line (launches by path; every kernel instance, float32 and
-   float64 ``qf_real`` and ``cf_half``, ``eb_solve`` and ``recomb_scan``,
-   must appear), the card's
+14. ``kernels`` line (launches by path, ``training`` and ``mesh`` among
+   them; every kernel instance, float32 and float64 ``qf_real`` and
+   ``cf_half``, ``eb_solve`` and ``recomb_scan``, must appear), the card's
    ``nvidia-smi`` line, and the final ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises: the exit code is then non-zero and no final line is
@@ -128,7 +155,6 @@ printed.  Imports nothing but the port (``eftpipe_tpu_torch``), torch, numpy.
 from __future__ import annotations
 
 import argparse
-import itertools
 import json
 import os
 import subprocess
@@ -149,7 +175,10 @@ from eftpipe_tpu_torch.api.orchestrate import Analysis
 from eftpipe_tpu_torch.boltzmann.eh98 import eh98_pk
 from eftpipe_tpu_torch.likelihood.covariance import GaussianCovariance, Multipole
 from eftpipe_tpu_torch.boltzmann.eh98 import eh98_transfer
-from eftpipe_tpu_torch.boltzmann.emulator import SolverEmulatorProvider, TransferEmulator
+from eftpipe_tpu_torch.boltzmann.emulator import (DEFAULT_BOUNDS, DEFAULT_PK_ARTIFACT,
+                                                   EmulatorProvider, PkEmulator,
+                                                   SolverEmulatorProvider, TransferEmulator,
+                                                   train_transfer_emulator)
 from eftpipe_tpu_torch.boltzmann import _kernels as bk, einstein_boltzmann as eb, thermo
 from eftpipe_tpu_torch.likelihood.parambasis import WestCoastBasis
 from eftpipe_tpu_torch.models.ap import lcdm_da, lcdm_hubble
@@ -157,7 +186,10 @@ from eftpipe_tpu_torch.models.config import EFTConfig
 from eftpipe_tpu_torch.models.nonlinear import LOWRANK_TOL, lowrank_tables_numpy
 from eftpipe_tpu_torch.models.pipeline import CosmoInputs, TracerPipeline
 from eftpipe_tpu_torch.ops import _build, quadform as qf
+from eftpipe_tpu_torch.parallel.hmc import HMC
 from eftpipe_tpu_torch.parallel.mcmc import MCMCDriver
+from eftpipe_tpu_torch.parallel.mesh import walker_mesh
+from eftpipe_tpu_torch.tools import train_solver_emulator as train_tool
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORKDIR = os.path.join(ROOT, "chip_smoke_workdir")
@@ -1569,14 +1601,9 @@ def solver_check_eb(solver, nw: int = 2, cut: int = 1500) -> dict:
 
 
 def golden_solver() -> "eb.EBSolver":
-    """The golden's recipe: ``box_solver``'s, with the schedule built over
+    """The golden's recipe: the 4-D recipe's, with the schedule built over
     the corners of ``GOLDEN_BOX`` (the box the golden was made with)."""
-    axes = [GOLDEN_BOX["omega_b"], GOLDEN_BOX["omega_cdm"], GOLDEN_BOX["h"], eb.BOX_MNU_BOUNDS]
-    corners = [eb.CosmoParams(omega_b=c[0], omega_cdm=c[1], h=c[2], m_ncdm=c[3],
-                              **eb.BOX_NEUTRINO, **eb.BOX_PRIMORDIAL)
-               for c in itertools.product(*axes)]
-    return eb.EBSolver(z_out=eb.BOX_Z_GRID.tolist(), kmax=eb.BOX_KMAX, growth_stencil=False,
-                       envelope=corners, device="cuda")
+    return eb.box_solver(dict(GOLDEN_BOX, m_ncdm=eb.BOX_MNU_BOUNDS), device="cuda")
 
 
 def solver_golden(solver, out_dir=None) -> dict:
@@ -1683,12 +1710,15 @@ def solver_phase(lines: list, out_dir=None) -> dict:
         out["golden"] = solver_golden(gsolver, out_dir)
         by_path["solver_golden"] = dict(bk.LAUNCHES)
         del gsolver
-        # the training recipe's solver today (the wide box): (b) and (e)
+        # the 4-D training recipe's solver (the wide box and the mass axis,
+        # 16 corners; the --sample-mnu recipe): (b) and (e)
         t0 = time.perf_counter()
         solver = eb.box_solver(device="cuda")
     sched = solver.schedule()
     out["build_seconds"] = time.perf_counter() - t0
-    out["schedule"] = dict(box={k: list(v) for k, v in eb.BOX_BOUNDS.items()},
+    out["schedule"] = dict(recipe="4-D (--sample-mnu): the 16 corners of the wide box and "
+                                  "the mass axis",
+                           box={k: list(v) for k, v in eb.BOX_BOUNDS.items()},
                            modes=int(sched.k.size), buckets=len(solver.buckets),
                            longest_mode_steps=int(sched.steps.max()),
                            mode_steps=int(sched.steps.sum()),
@@ -1744,7 +1774,7 @@ def solver_phase(lines: list, out_dir=None) -> dict:
         failed.append(f"analysis {res}")
     if failed:
         raise SystemExit(f"chip_smoke: solver: failed {failed}")
-    return dict(by_path=by_path, qf_shapes=qf_shapes, rows=solver_rows(out, by_path))
+    return dict(by_path=by_path, qf_shapes=qf_shapes, out=out)
 
 
 def solver_rows(out: dict, by_path: dict) -> list:
@@ -1756,7 +1786,7 @@ def solver_rows(out: dict, by_path: dict) -> list:
     for name, check, bnd, ms in (
             ("eb_solve", out["eb_check"], t4["eb_solve"], t4["eb_solve_ms"]),
             ("recomb_scan", out["recomb_check"], t4["recomb_scan"], t4["recomb_scan_ms"])):
-        per_path = {p: c[name] for p, c in by_path.items()}
+        per_path = {p: c[name] for p, c in by_path.items()} | {"mesh": 0}
         rows.append(dict(
             name=f"{name}[f64,W=4]", route="cuda", source=SOLVER_SOURCE,
             replaces=SOLVER_REPLACES[name], launches=sum(per_path.values()),
@@ -1765,6 +1795,261 @@ def solver_rows(out: dict, by_path: dict) -> list:
             plain_shape={k: check[k] for k in ("W", "n", "modes", "mode_steps") if k in check},
             bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# emulator training (phases 11 and 12) and the walker mesh (phase 13)
+# ---------------------------------------------------------------------------
+# the recipe that reproduces the shipped artifact pk_emulator_mnu06.npz
+TRAIN_RECIPE = dict(n=512, inner_frac=0.35, degree=8, degree_in=7, ncomp=96, batch=64)
+TRAIN_LOG_T_BUDGET = 1e-6
+TRAIN_LOG_RDRAG_BUDGET = 1e-7
+TRAIN_PROVIDER_REL_BUDGET = 1e-6
+# arrays made by host arithmetic on the same Sobol points: equal bit for bit
+TRAIN_BITWISE = ("x_mean", "x_std", "bounds_lo", "bounds_hi", "x_mean_in", "x_std_in",
+                 "blend_lo", "blend_hi", "blend_margin")
+# the held-out errors the shipped artifact's commit (30719cf) states
+SHIPPED_REPORT = dict(val_inner_max_abs_logT=2.9e-4, val_max_abs_log_rdrag=2.2e-4)
+TRANSFER_K = np.logspace(-4, 0.3, 100)  # tests/test_boltzmann_extras.py's k grid [1/Mpc]
+TRANSFER_HELDOUT = np.array([0.0223, 0.118, 0.69, 0.965])  # and its held-out point
+TRANSFER_REL_BUDGET = 0.02
+MESH_WALKERS, MESH_STEPS = 256, 4
+MESH_CHAINS, MESH_HMC_STEPS = 16, 5
+
+
+def seeded_box(n: int, seed: int, lo, hi) -> np.ndarray:
+    return lo + (hi - lo) * np.random.default_rng(seed).random((n, len(lo)))
+
+
+def training_phase(lines: list) -> dict:
+    """Phase 11: the shipped P(k) artifact retrained at full width
+    (``tools/train_solver_emulator.py``'s recipe: 512 solves of 288 k × 13 z
+    on the 8-corner envelope of the 3-D box, 64 a call; the PCA + ridge fit
+    and its inner blend) and compared with the shipped one.  Returns the
+    solver kernels' launches of the path."""
+    t_phase = time.perf_counter()
+    r = TRAIN_RECIPE
+    shipped = PkEmulator.load(DEFAULT_PK_ARTIFACT)
+    out = dict(recipe=r)
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        design = train_tool.prepare_workdir(wd, train_tool.sample_design(r["n"], r["inner_frac"]))
+        out["design_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            solver = train_tool.design_solver(design, device="cuda")
+        sched = solver.schedule()
+        out["schedule"] = dict(corners=2 ** len(design["names"]), modes=int(sched.k.size),
+                               z=int(solver.z_out.size), longest_mode_steps=int(sched.steps.max()),
+                               mode_steps=int(sched.steps.sum()),
+                               seconds=time.perf_counter() - t0)
+        bk.reset_launch_counts()
+        t0 = time.perf_counter()
+        calls, solve_ms = timed(lambda: train_tool.solve_samples(
+            solver, design, wd, batch=r["batch"], log=lambda m: None))
+        solve_s = time.perf_counter() - t0
+        launches = dict(bk.LAUNCHES)
+        out.update(solver_calls=calls, solve_seconds=solve_s, solve_device_ms=solve_ms,
+                   cosmologies_per_s=r["n"] / solve_s, launches=launches)
+        t0 = time.perf_counter()
+        emu, report = train_tool.fit(wd, design, r["ncomp"], r["degree"], r["degree_in"],
+                                     device="cuda")
+        out["fit_seconds"] = time.perf_counter() - t0
+        out["report"] = report
+        out["report_stated_for_the_shipped_artifact"] = SHIPPED_REPORT
+
+        # (a) host arithmetic on identical Sobol points: bit for bit
+        out["bitwise"] = {name: bool(np.array_equal(getattr(emu, name), getattr(shipped, name)))
+                          for name in TRAIN_BITWISE}
+        # (b) both artifacts' predictions, float64 on the card: the held-out
+        # points, seeded points of the wide box and of the blend region
+        t0 = time.perf_counter()
+        vi = np.random.default_rng(0).permutation(r["n"])[:report["n_val"]]
+        lo, hi = shipped.box()
+        m = shipped.blend_margin
+        groups = dict(validation=design["x"][vi], wide=seeded_box(128, 31, lo, hi),
+                      blend=seeded_box(128, 32, shipped.blend_lo - m, shipped.blend_hi + m))
+        nzk = len(shipped.z_grid) * len(shipped.kgrid)
+        pred = {}
+        for name, pts in groups.items():
+            xt = torch.as_tensor(pts, dtype=torch.float64, device="cuda")
+            with torch.no_grad():
+                d = (emu.raw(xt) - shipped.raw(xt)).abs()
+            pred[name] = dict(points=len(pts), max_abs_dlog_tm=float(d[:, :nzk].max()),
+                              max_abs_dlog_tcb=float(d[:, nzk:2 * nzk].max()),
+                              max_abs_dlog_rdrag=float(d[:, -1].max()))
+        out["predictions"] = pred
+        out["coeffs_max_rel_diff"] = {
+            name: float(np.abs(getattr(emu, name) - getattr(shipped, name)).max()
+                        / np.abs(getattr(shipped, name)).max())
+            for name in ("coeffs", "coeffs_in")}
+        # (d) the solver-emulator provider on the retrained file and the
+        # shipped one, float64, at 64 seeded points of the inner box
+        path = os.path.join(wd, "retrained.npz")
+        emu.save(path)
+        cfg = EFTConfig()
+        pts = seeded_box(64, 33, np.array([0.0195, 0.075, 0.55, 2.9, 0.94]),
+                         np.array([0.0255, 0.175, 0.80, 3.2, 0.99]))
+        params = {n: torch.as_tensor(pts[:, i], dtype=torch.float64, device="cuda")
+                  for i, n in enumerate(("omega_b", "omega_cdm", "h", "ln10As", "ns"))}
+        with torch.no_grad():
+            got = SolverEmulatorProvider.load(cfg, 0.7, path=path).inputs(params)
+            ref = SolverEmulatorProvider.load(cfg, 0.7).inputs(params)
+        out["provider"] = {f: rel_err(getattr(got, f), getattr(ref, f)) for f in ("plin", "f")}
+        out["validation_seconds"] = time.perf_counter() - t0
+    out["nvidia_smi"] = nvidia_smi_line()
+    out["seconds"] = time.perf_counter() - t_phase
+    lines.append(emit("training", **out))
+    failed = [f"(a) {k}" for k, v in out["bitwise"].items() if not v]
+    for name, p in pred.items():
+        if not (p["max_abs_dlog_tm"] <= TRAIN_LOG_T_BUDGET
+                and p["max_abs_dlog_tcb"] <= TRAIN_LOG_T_BUDGET
+                and p["max_abs_dlog_rdrag"] <= TRAIN_LOG_RDRAG_BUDGET):
+            failed.append(f"(b) {name} {p}")
+    if not all(v <= TRAIN_PROVIDER_REL_BUDGET for v in out["provider"].values()):
+        failed.append(f"(d) {out['provider']}")
+    if launches != {"eb_solve": r["n"] // r["batch"], "recomb_scan": r["n"] // r["batch"]}:
+        failed.append(f"(e) launches {launches}")
+    if failed:
+        raise SystemExit(f"chip_smoke: training: failed {failed}")
+    return launches
+
+
+def transfer_training_phase(lines: list) -> None:
+    """Phase 12: ``train_transfer_emulator`` at the JAX defaults (2,048 EH98
+    samples, width 128, depth 3, 3,000 Adam steps of 256, lr 3e-3), float32
+    on the card, held to the JAX suite's 2 % gate at its held-out point on
+    its k grid; then a save → load → provider round trip."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    emu, train_ms = timed(lambda: train_transfer_emulator(TRANSFER_K, dtype=torch.float32,
+                                                          device=dev))
+    train_s = time.perf_counter() - t0
+    on_card = all(t.device.type == "cuda" for layer in emu.params for t in layer.values())
+    k = torch.as_tensor(TRANSFER_K, dtype=torch.float64, device=dev)
+    y_std = torch.as_tensor(emu.y_std, device=dev)
+
+    def errors(x):
+        with torch.no_grad():
+            t_emu = emu(torch.as_tensor(x, dtype=torch.float32, device=dev)).double()
+            col = lambda i: torch.as_tensor(x[:, i:i + 1], dtype=torch.float64, device=dev)
+            t_ref, _ = eh98_transfer(k[None], col(0), col(0) + col(1), col(2))
+        rel = (t_emu / t_ref - 1.0).abs().max(-1).values
+        loss = (((torch.log(t_emu) - torch.log(t_ref)) / y_std) ** 2).mean()
+        return float(rel.max()), float(loss)
+
+    held, _ = errors(TRANSFER_HELDOUT[None])
+    lo, hi = (np.array([v[i] for v in DEFAULT_BOUNDS.values()]) for i in (0, 1))
+    worst, loss = errors(seeded_box(256, 34, lo, hi))
+    cfg = EFTConfig()
+    da_fid, h_fid = lcdm_da(0.31, 0.7), lcdm_hubble(0.31, 0.7)
+    pts = seeded_box(16, 35, np.append(lo, 2.9), np.append(hi, 3.2))
+    params = {n: torch.as_tensor(pts[:, i], dtype=torch.float32, device=dev)
+              for i, n in enumerate(("omega_b", "omega_cdm", "h", "ns", "ln10As"))}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "transfer.npz")
+        emu.save(path)
+        with torch.no_grad():
+            got = EmulatorProvider.load(cfg, 0.7, path).inputs(params)
+            ref = EmulatorProvider(cfg=cfg, zeff=0.7, emulator=emu, da_fid=da_fid,
+                                   h_fid=h_fid).inputs(params)
+    round_trip = {f: rel_err(getattr(got, f), getattr(ref, f)) for f in ("plin", "f")}
+    steps = 3000
+    lines.append(emit(
+        "transfer_training", n_samples=2048, width=128, depth=3, steps=steps, batch=256,
+        lr=3e-3, dtype="float32", params_on_card=on_card, seconds=train_s, device_ms=train_ms,
+        steps_per_s=steps / train_s, heldout_point=TRANSFER_HELDOUT.tolist(),
+        heldout_max_rel_err=held, budget=TRANSFER_REL_BUDGET, worst_of_256_in_box=worst,
+        heldout_normalised_mse_256=loss, round_trip_max_rel=round_trip,
+        nvidia_smi=nvidia_smi_line()))
+    if not (on_card and held < TRANSFER_REL_BUDGET and max(round_trip.values()) == 0.0):
+        raise SystemExit(f"chip_smoke: transfer_training: parameters on the card {on_card}, "
+                         f"held-out error {held}, round trip {round_trip}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_phase(model, lines: list) -> dict:
+    """Phase 13: a one-rank NCCL group on the card, formed here; the lite
+    flagship under ``MCMCDriver(mesh=walker_mesh())`` (stretch, 256
+    walkers, 4 steps) and ``HMC(mesh=...)`` (16 chains, 5 warmup + 5
+    steps), each against the same run without the mesh on the same seed,
+    bit for bit.  Returns the kernels' launches of the mesh runs by shape."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda")
+    x0 = torch.as_tensor(model.theta0, dtype=torch.float32, device=dev)
+    q0 = torch.as_tensor(accuracy_batch(model.theta0)[:MESH_CHAINS], dtype=torch.float32,
+                         device=dev)
+    inv_mass0 = torch.as_tensor((1e-2 * model.theta0) ** 2, dtype=torch.float32, device=dev)
+
+    def stretch(mesh):
+        drv = MCMCDriver(logp=model.logp, ndim=9, nwalkers=MESH_WALKERS, block=MESH_STEPS,
+                         rhat_tol=-1.0, mesh=mesh, device=None if mesh else dev)
+        return drv.run(seed=7, x0=x0, max_steps=MESH_STEPS)
+
+    def hmc(mesh):
+        sampler = HMC(logp=model.logp, ndim=9, n_leapfrog=4, mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(8)
+        state, eps, inv_mass, acc_w = sampler.warmup(gen, q0, MESH_HMC_STEPS, 1e-3, inv_mass0)
+        chain, logps, acc = sampler.run(gen, state, eps, inv_mass, MESH_HMC_STEPS)
+        return chain, logps, acc, eps, inv_mass, acc_w
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = walker_mesh()
+        ref_stretch = stretch(None)  # comparisons, uncounted
+        ref_hmc = hmc(None)
+        torch.cuda.synchronize()
+        qf.reset_launch_counts()
+        mesh.collectives = 0
+        t0 = time.perf_counter()
+        got_stretch = stretch(mesh)
+        torch.cuda.synchronize()
+        stretch_s = time.perf_counter() - t0
+        stretch_coll = mesh.collectives
+        t0 = time.perf_counter()
+        got_hmc = hmc(mesh)
+        torch.cuda.synchronize()
+        hmc_s = time.perf_counter() - t0
+        hmc_coll = mesh.collectives - stretch_coll
+        by_shape = dict(qf.LAUNCHES_BY_SHAPE)
+        launches = dict(qf.LAUNCHES)
+        # one all_gather of a half-ensemble's values, alone
+        half = torch.zeros(MESH_WALKERS // 2, dtype=torch.float32, device=dev)
+        _, gather_ms = timed(lambda: [mesh.gather(half) for _ in range(50)], warmup=1)
+        gather_ms /= 50
+    finally:
+        dist.destroy_process_group()
+    stretch_equal = (bool(np.array_equal(got_stretch.chain, ref_stretch.chain))
+                     and bool(np.array_equal(got_stretch.logps, ref_stretch.logps)))
+    hmc_equal = all(bool(torch.equal(a, b)) for a, b in zip(got_hmc, ref_hmc))
+    stretch_per_step = (stretch_coll - 1) / MESH_STEPS  # the first: the initial evaluation
+    lines.append(emit(
+        "mesh", backend="nccl", ranks=1, model="flagship-lite, float32, kernels",
+        stretch=dict(nwalkers=MESH_WALKERS, steps=MESH_STEPS, bitwise_equal=stretch_equal,
+                     seconds=stretch_s, collectives=stretch_coll,
+                     collectives_per_step=stretch_per_step,
+                     collective_share_of_step=stretch_per_step * gather_ms
+                     / (1e3 * stretch_s / MESH_STEPS)),
+        hmc=dict(nchains=MESH_CHAINS, n_leapfrog=4, warmup=MESH_HMC_STEPS, steps=MESH_HMC_STEPS,
+                 bitwise_equal=hmc_equal, seconds=hmc_s, collectives=hmc_coll,
+                 collectives_per_transition=hmc_coll / (2 * MESH_HMC_STEPS),
+                 collective_share=hmc_coll * gather_ms / (1e3 * hmc_s),
+                 accept_warmup=float(got_hmc[5]), accept=float(got_hmc[2])),
+        all_gather_ms=gather_ms, all_gather_numbers=MESH_WALKERS // 2, launches=launches,
+        nvidia_smi=nvidia_smi_line()))
+    if not (stretch_equal and hmc_equal and launches["qf_real"] > 0):
+        raise SystemExit(f"chip_smoke: mesh: stretch equal {stretch_equal}, hmc equal "
+                         f"{hmc_equal}, launches {launches}")
+    return by_shape
 
 
 def main() -> None:
@@ -1855,17 +2140,23 @@ def main() -> None:
     by_path.update(sampling_phase(model, ref_model, lines))
     by_path["lowrank"] = lowrank_phase(model, ref_model, lines)
     del model, ref_model
-    by_path["main_path_lite"], _, _ = flagship_path(
+    by_path["main_path_lite"], lite, lite_ref = flagship_path(
         "main_path_lite", "flagship LRG(nl=3)+ELG(nl=2), nfft_loop=256, eh98, no window",
         dict(with_window=False, cosmology="eh98"), nb=LITE_BATCH, n_timed=1,
         chunk_trials=(), full=False, lines=lines)
+    del lite_ref
+    by_path["mesh"] = mesh_phase(lite, lines)
+    del lite
     stages_check(64, lines)
     by_path.update(analysis_phase(lines))
     solver = solver_phase(lines, args.out)
     by_path["solver_analysis"] = solver["qf_shapes"]
-    # the float32 kernels at the shapes the solver's analysis gave them
+    solver["by_path"]["training"] = training_phase(lines)
+    transfer_training_phase(lines)
+    # the float32 kernels at the shapes the solver's analysis and the mesh
+    # path gave them
     checked = {(r["kernel"], r["dtype"], r["W"], r["N"], r["S"], r["BL"]) for r in rows}
-    for key in sorted(set(solver["qf_shapes"]) - checked):
+    for key in sorted((set(solver["qf_shapes"]) | set(by_path["mesh"])) - checked):
         kernel, suffix, nw, n, s_, bl = key
         rows.append(check_kernel(kernel, f32 if suffix == "f32" else f64, nw, n, s_, bl,
                                  gen=gen, n_timed=n_timed))
@@ -1880,6 +2171,8 @@ def main() -> None:
             continue  # a shape of the checks only (ragged)
         if row["kernel"] == "qf_real":
             per_path.setdefault("lowrank", 0)  # the low-rank route: two matmuls, no kernel
+        per_path.setdefault("mesh", 0)
+        per_path.setdefault("training", 0)
         out_rows.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "peak", "library_ms", "prepared")}
@@ -1889,6 +2182,7 @@ def main() -> None:
             if not any(r["name"].startswith(f"{kernel}[{suffix},") for r in out_rows):
                 raise SystemExit(f"chip_smoke: kernel {kernel} ({suffix}) was not launched "
                                  f"on any path")
+    solver["rows"] = solver_rows(solver["out"], solver["by_path"])
     for row in solver["rows"]:
         if row["launches"] <= 0:
             raise SystemExit(f"chip_smoke: kernel {row['name']} was not launched on any path")

@@ -24,7 +24,9 @@ defaults to float32, as the JAX CLI), the device (the card unless
 "lowrank" with its cut and CF premix: the JAX package's
 ``EFTPIPE_TPU_LOWRANK*`` / ``EFTPIPE_TPU_CF_PREMIX``); ``run_mcmc`` seeds a
 ``torch.Generator``; the ``solver`` provider solves on the analysis' device
-(float64, cast to the analysis' dtype); ``mesh=`` raises naming A13.
+(float64, cast to the analysis' dtype); ``run_mcmc(mesh=)`` takes a
+``parallel/mesh.py::WalkerMesh`` (one process per card) on the analysis'
+device.
 """
 
 from __future__ import annotations
@@ -1015,7 +1017,10 @@ class Analysis:
         (:meth:`init_walkers`, seeded with ``key + 1``); ``"ball"`` is the
         tight-ball start.  ``sampler="hmc"`` runs HMC chains; with
         ``init="laplace"`` its warmup metric starts from the full Laplace
-        covariance.  ``mesh`` (several cards) is not ported (ROADMAP A13)."""
+        covariance.  ``mesh`` (a ``parallel/mesh.py::WalkerMesh``, one
+        process per card, its device the analysis') splits the walkers'
+        evaluations over the cards; the chain equals the one-card chain and
+        only rank 0 writes the files."""
         from ..parallel.mcmc import MCMCDriver
 
         if sampler == "hmc" and init == "laplace" and \

@@ -7,7 +7,8 @@ runs one per walker and hands the pipeline a ``(W,)``-stacked
 the dtype of the parameters it was given (``tabulate`` stacks a list of
 parameter dicts the same way).  Both oracles are import-gated: constructing
 one raises ``ImportError`` with install guidance when its package is absent.
-Training an emulator on oracle samples is not ported yet (ROADMAP A9).
+:func:`train_emulator_from_oracle` trains the transfer emulator on an
+oracle's spectra.
 """
 
 from __future__ import annotations
@@ -170,6 +171,23 @@ class OracleProvider:
 
 def train_emulator_from_oracle(oracle, z: float, kgrid_mpc, bounds,
                                h_of_row=None, **train_kwargs):
-    """Not ported yet: emulator training is ROADMAP A9."""
-    raise NotImplementedError(
-        "train_emulator_from_oracle: emulator training is not ported yet (ROADMAP A9)")
+    """Fit the transfer emulator (``emulator.train_transfer_emulator``, its
+    keyword arguments in ``train_kwargs``) on oracle samples: the target of
+    a row is the oracle's P(k) at ``z`` resampled log-log onto
+    ``kgrid_mpc / h`` [h/Mpc], divided by the primordial shape
+    (k/0.05)^(n_s−1)·k and square-rooted (floor 1e-300): an effective |T|
+    whose normalisation the emulator's output scaling absorbs."""
+    from .emulator import train_transfer_emulator
+
+    names = tuple(bounds)
+    kgrid_mpc = np.asarray(kgrid_mpc)
+
+    def target(row):
+        params = dict(zip(names, row))
+        res = oracle.compute(params, z)
+        h = params.get("h", res["h"])
+        p = resample_loglog(res["kh"], res["pkh"], kgrid_mpc / h)
+        prim = (kgrid_mpc / 0.05) ** (params.get("ns", 0.96) - 1.0) * kgrid_mpc
+        return np.sqrt(np.maximum(p / prim, 1e-300))
+
+    return train_transfer_emulator(kgrid_mpc, bounds=bounds, oracle=target, **train_kwargs)

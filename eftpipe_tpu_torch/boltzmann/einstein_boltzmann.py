@@ -763,18 +763,36 @@ def box_params(omega_b, omega_cdm, h, m_ncdm, device=None) -> "CosmoParams":
     return as_batch(par, device)
 
 
-def box_solver(device=None) -> "EBSolver":
-    """The solver of the emulator's training recipe: the 13 z of the box,
-    ``kmax`` 1.6, no growth stencil, the schedule built over the envelope of
-    the 16 corners of the 4-D box (``BOX_BOUNDS`` and ``BOX_MNU_BOUNDS``)."""
+def box_corners(bounds: dict, m_ncdm: float | None = None) -> list:
+    """The corners of a box of the training cosmologies, one
+    :class:`CosmoParams` each (the box's neutrino setup and primordial
+    parameters): ``bounds`` maps omega_b, omega_cdm, h and optionally
+    m_ncdm (per species) to (lo, hi), in that order; a fixed ``m_ncdm`` is
+    given when it is not an axis.  2^len(bounds) corners, in
+    ``itertools.product`` order."""
     import itertools
 
-    axes = [BOX_BOUNDS["omega_b"], BOX_BOUNDS["omega_cdm"], BOX_BOUNDS["h"], BOX_MNU_BOUNDS]
-    corners = [CosmoParams(omega_b=c[0], omega_cdm=c[1], h=c[2], m_ncdm=c[3],
-                           **BOX_NEUTRINO, **BOX_PRIMORDIAL)
-               for c in itertools.product(*axes)]
+    names = list(bounds)
+    if ("m_ncdm" in names) == (m_ncdm is not None):
+        raise ValueError("box_corners: give m_ncdm either as an axis of bounds or fixed")
+    return [CosmoParams(**{"m_ncdm": m_ncdm, **dict(zip(names, c))}, **BOX_NEUTRINO,
+                        **BOX_PRIMORDIAL)
+            for c in itertools.product(*(bounds[n] for n in names))]
+
+
+def box_solver(bounds: dict | None = None, m_ncdm: float | None = None,
+               device=None) -> "EBSolver":
+    """A solver of the emulator's training recipe: the 13 z of the box,
+    ``kmax`` 1.6, no growth stencil, the schedule built over the envelope of
+    the corners of ``bounds`` (:func:`box_corners`).  By default the 16
+    corners of the 4-D box (``BOX_BOUNDS`` and ``BOX_MNU_BOUNDS``): the
+    recipe of the 4-input artifact (``--sample-mnu``).  The shipped 3-input
+    artifact's recipe is the 8 corners of ``BOX_BOUNDS`` at ``m_ncdm=0.02``
+    (``eftpipe_tpu_torch/tools/train_solver_emulator.py``)."""
+    if bounds is None:
+        bounds = dict(BOX_BOUNDS, m_ncdm=BOX_MNU_BOUNDS)
     return EBSolver(z_out=BOX_Z_GRID.tolist(), kmax=BOX_KMAX, growth_stencil=False,
-                    envelope=corners, device=device)
+                    envelope=box_corners(bounds, m_ncdm), device=device)
 
 
 def log_transfers(lp: "LinearPower", ln10As: float = BOX_PRIMORDIAL["ln10As"],

@@ -1,12 +1,14 @@
-"""Emulator cosmology, run-time half (counterpart of
-``eftpipe_tpu/boltzmann/emulator.py``: ``TransferEmulator`` and
-``EmulatorProvider``, ``PkEmulator`` and ``SolverEmulatorProvider``;
-training is not ported).
+"""Emulator cosmology (counterpart of ``eftpipe_tpu/boltzmann/emulator.py``:
+``TransferEmulator``, ``EmulatorProvider``, ``PkEmulator`` and
+``SolverEmulatorProvider``, and their training: ``init_mlp``,
+``train_transfer_emulator``, ``train_pk_emulator``).
 
 ``TransferEmulator`` is an MLP from (ω_b, ω_cdm, h, n_s) to log T(k) on a
-fixed k grid, read from the JAX package's ``TransferEmulator.save`` file;
-``EmulatorProvider`` turns it into the pipeline's ``CosmoInputs`` with the
-exact flat-ΛCDM growth and background of ``eh98.py``.
+fixed k grid, trained by :func:`train_transfer_emulator` (Adam on the
+emulator's device, optax's update operation for operation) or read from a
+``TransferEmulator.save`` file of either package; ``EmulatorProvider`` turns
+it into the pipeline's ``CosmoInputs`` with the exact flat-ΛCDM growth and
+background of ``eh98.py``.
 
 ``PkEmulator`` is a polynomial ridge on normalised (ω_b, ω_cdm, h[, m_ncdm])
 that predicts log T(k, z) of total matter and cb on the solver's grids and
@@ -15,6 +17,10 @@ one (W, nterms) @ (nterms, d) product per ridge.  ``SolverEmulatorProvider``
 turns it into the pipeline's ``CosmoInputs``: P_lin at z_eff on ``cfg.kin``,
 the growth rate f = dln σ8/dln a from the emulated spectra, and the AP
 distortions from an exact flat-ΛCDM(+ν as matter) background.
+:func:`train_pk_emulator` fits it on solver spectra (host NumPy, float64,
+the JAX function's arithmetic; ``eftpipe_tpu_torch/tools/
+train_solver_emulator.py`` is the recipe) and :meth:`PkEmulator.save` writes
+the JAX package's artifact layout.
 
 Everything carries the walker axis: parameters are (W,) tensors, the
 emulator input is (W, nin).  The artifact's arrays stay on the host; the
@@ -31,11 +37,12 @@ from dataclasses import dataclass, field
 from itertools import combinations_with_replacement
 from pathlib import Path
 
+from .. import resolve_device
 from ..models.config import EFTConfig
 from ..models.pipeline import CosmoInputs
 from ..models.window import MetaInfoError
 from ..ops.interp import MatmulInterp
-from .eh98 import _KPIVOT, _gauss_nodes, lcdm_background, lcdm_growth
+from .eh98 import _KPIVOT, _gauss_nodes, eh98_transfer, lcdm_background, lcdm_growth
 
 _ARTIFACT_DIR = Path(__file__).resolve().parent / "artifacts"
 DEFAULT_PK_ARTIFACT = _ARTIFACT_DIR / "pk_emulator_mnu06.npz"
@@ -81,6 +88,11 @@ def _poly_design(xn, degree: int, cache: dict):
     return out
 
 
+def _host(a) -> np.ndarray:
+    """A host NumPy copy of a tensor or array."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def _smoothstep(t):
     t = torch.clamp(t, 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
@@ -97,10 +109,23 @@ def mlp_apply(params, x):
     return x @ last["w"] + last["b"]
 
 
+def init_mlp(gen: torch.Generator, sizes, dtype=torch.float64) -> list:
+    """He-initialised MLP parameters on ``gen``'s device: for each layer
+    ``w = randn(din, dout) · sqrt(2 / din)`` drawn from ``gen``, ``b = 0``."""
+    params = []
+    for din, dout in zip(sizes[:-1], sizes[1:]):
+        w = torch.randn((din, dout), generator=gen, dtype=dtype, device=gen.device)
+        params.append({"w": w * math.sqrt(2.0 / din),
+                       "b": torch.zeros(dout, dtype=dtype, device=gen.device)})
+    return params
+
+
 @dataclass(eq=False)
 class TransferEmulator:
-    """log T(k) emulator on a fixed k grid [1/Mpc] (host NumPy arrays; moved
-    to a device once per (device, dtype) at first use)."""
+    """log T(k) emulator on a fixed k grid [1/Mpc].  The parameters are host
+    NumPy arrays (a loaded file) or tensors (a trained emulator, on its
+    training device); either is moved to a device once per (device, dtype)
+    at first use."""
 
     params: list                # [{"w": (din, dout), "b": (dout,)}, ...]
     kgrid: np.ndarray           # Mpc^-1
@@ -114,8 +139,12 @@ class TransferEmulator:
     def _tensors(self, like) -> dict:
         key = (like.device, like.dtype)
         if key not in self._cache:
-            dev = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=like.dtype,
-                                            device=like.device)
+            def dev(a):
+                if isinstance(a, torch.Tensor):
+                    return a.detach().to(dtype=like.dtype, device=like.device)
+                return torch.as_tensor(np.asarray(a, np.float64), dtype=like.dtype,
+                                       device=like.device)
+
             self._cache[key] = dict(
                 params=[{"w": dev(layer["w"]), "b": dev(layer["b"])} for layer in self.params],
                 **{name: dev(getattr(self, name))
@@ -132,11 +161,11 @@ class TransferEmulator:
         """The JAX package's ``TransferEmulator.save`` layout."""
         flat = {}
         for i, layer in enumerate(self.params):
-            flat[f"w{i}"] = np.asarray(layer["w"])
-            flat[f"b{i}"] = np.asarray(layer["b"])
-        np.savez(path, kgrid=self.kgrid, x_mean=np.asarray(self.x_mean),
-                 x_std=np.asarray(self.x_std), y_mean=np.asarray(self.y_mean),
-                 y_std=np.asarray(self.y_std), nlayers=len(self.params), **flat)
+            flat[f"w{i}"] = _host(layer["w"])
+            flat[f"b{i}"] = _host(layer["b"])
+        np.savez(path, kgrid=self.kgrid, x_mean=_host(self.x_mean),
+                 x_std=_host(self.x_std), y_mean=_host(self.y_mean),
+                 y_std=_host(self.y_std), nlayers=len(self.params), **flat)
 
     @classmethod
     def load(cls, path) -> "TransferEmulator":
@@ -147,6 +176,94 @@ class TransferEmulator:
             return cls(params=params, kgrid=np.asarray(z["kgrid"]),
                        x_mean=np.asarray(z["x_mean"]), x_std=np.asarray(z["x_std"]),
                        y_mean=np.asarray(z["y_mean"]), y_std=np.asarray(z["y_std"]))
+
+
+DEFAULT_BOUNDS = {
+    "omega_b": (0.020, 0.024),
+    "omega_cdm": (0.09, 0.15),
+    "h": (0.60, 0.76),
+    "ns": (0.90, 1.02),
+}
+
+
+def _train_mlp(params: list, xn, yn, idx, lr: float, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8):
+    """The step loop of :func:`train_transfer_emulator`, from the initial
+    ``params`` (tensors: their device and dtype are the training's; not
+    modified).  Adam on the mean squared error of ``mlp_apply(params, xn[i])
+    - yn[i]``, one step per row ``i`` of the batch indices ``idx`` (steps,
+    batch); ``xn`` (n, nin), ``yn`` (n, nk) and ``idx`` are moved to the
+    parameters' device once.  The update is ``optax.adam``'s, operation for
+    operation: moments ``(1 - b)·g + b·m``, bias corrections dividing the
+    moments, ``eps`` outside the square root, ``p + (-lr)·u``.  Returns the
+    trained parameters."""
+    like = params[0]["w"]
+    xn, yn = (torch.as_tensor(a, dtype=like.dtype, device=like.device) for a in (xn, yn))
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=like.device)
+    leaves = [layer[n].detach().clone().requires_grad_(True) for layer in params for n in "wb"]
+    mu = [torch.zeros_like(t) for t in leaves]
+    nu = [torch.zeros_like(t) for t in leaves]
+    for count, ib in enumerate(idx, start=1):
+        p = [{"w": leaves[2 * j], "b": leaves[2 * j + 1]} for j in range(len(params))]
+        loss = torch.mean((mlp_apply(p, xn[ib]) - yn[ib]) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+        bc1, bc2 = 1.0 - b1**count, 1.0 - b2**count
+        with torch.no_grad():
+            for t, g, m, v in zip(leaves, grads, mu, nu):
+                m.copy_((1.0 - b1) * g + b1 * m)
+                v.copy_((1.0 - b2) * (g * g) + b2 * v)
+                t.add_((-lr) * ((m / bc1) / (torch.sqrt(v / bc2) + eps)))
+    return [{"w": leaves[2 * j].detach(), "b": leaves[2 * j + 1].detach()}
+            for j in range(len(params))]
+
+
+def _eh98_targets(kgrid_mpc, x: np.ndarray, device) -> np.ndarray:
+    """EH98 transfers T(k) (n, nk) of the rows (ω_b, ω_cdm, h, ...) of ``x``,
+    one batched float64 evaluation on ``device``."""
+    col = lambda i: torch.as_tensor(x[:, i:i + 1], dtype=torch.float64, device=device)
+    k = torch.as_tensor(np.asarray(kgrid_mpc, np.float64)[None], device=device)
+    t, _ = eh98_transfer(k, col(0), col(0) + col(1), col(2))
+    return t.cpu().numpy()
+
+
+def train_transfer_emulator(kgrid_mpc, bounds: dict | None = None, n_samples: int = 2048,
+                            width: int = 128, depth: int = 3, steps: int = 3000,
+                            lr: float = 3e-3, seed: int = 0, oracle=None,
+                            dtype=torch.float64, device=None) -> TransferEmulator:
+    """Train a :class:`TransferEmulator` on an oracle (default: the
+    Eisenstein–Hu transfer of the rows' (ω_b, ω_cdm, h), batched over the
+    samples; a user oracle is ``oracle(row) -> T(k)`` on the host).
+
+    The JAX function's recipe: inputs uniform in ``bounds`` and the batch
+    indices drawn from ``np.random.default_rng(seed)`` in its order (first
+    the inputs, then one ``integers`` call a step), normalised inputs and
+    log-targets, He-initialised weights (from a ``torch.Generator`` seeded
+    with ``seed``: ``jax.random`` streams cannot be reproduced), Adam at
+    ``lr`` on batches of min(256, n_samples).  Training runs on ``device``
+    (the card unless ``"cpu"``) in ``dtype``; the returned emulator's
+    parameters stay there."""
+    device = resolve_device(device)
+    bounds = bounds or DEFAULT_BOUNDS
+    names = tuple(bounds)
+    rng = np.random.default_rng(seed)
+    lo = np.array([bounds[n][0] for n in names])
+    hi = np.array([bounds[n][1] for n in names])
+    x = lo + (hi - lo) * rng.random((n_samples, len(names)))
+    if oracle is None:
+        t = _eh98_targets(kgrid_mpc, x, device)
+    else:
+        t = np.stack([np.asarray(oracle(row)) for row in x])
+    y = np.log(t)
+    x_mean, x_std = x.mean(0), x.std(0)
+    y_mean, y_std = y.mean(0), y.std(0) + 1e-12
+    batch = min(256, n_samples)
+    idx = np.array([rng.integers(0, n_samples, batch) for _ in range(steps)],
+                   np.int64).reshape(steps, batch)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_mlp(gen, [len(names)] + [width] * depth + [len(kgrid_mpc)], dtype)
+    params = _train_mlp(params, (x - x_mean) / x_std, (y - y_mean) / y_std, idx, lr)
+    return TransferEmulator(params=params, kgrid=np.asarray(kgrid_mpc), x_mean=x_mean,
+                            x_std=x_std, y_mean=y_mean, y_std=y_std, input_names=names)
 
 
 @dataclass(eq=False)
@@ -203,8 +320,8 @@ class EmulatorProvider:
 @dataclass(eq=False)
 class PkEmulator:
     """Polynomial-ridge emulator of the Einstein–Boltzmann solver's
-    log-transfer outputs (host NumPy arrays; see the JAX class for the
-    training side).  ``y = y_mean + design(x) @ coeffs``; with the inner
+    log-transfer outputs (host NumPy arrays; trained by
+    :func:`train_pk_emulator`).  ``y = y_mean + design(x) @ coeffs``; with the inner
     ridge, ``(1 - w)·global + w·inner`` with w a C¹ smoothstep bump that is
     1 over [blend_lo, blend_hi] and 0 outside the margin-expanded box."""
 
@@ -291,6 +408,33 @@ class PkEmulator:
             return None
         return float(self.m_ncdm) * float(self.deg_ncdm or 1.0)
 
+    def save(self, path) -> None:
+        """The JAX package's artifact layout (``np.savez_compressed``): the
+        ridge(s), the inner blend, the provenance (``bounds_*``, ``m_ncdm``,
+        ``deg_ncdm``, ``n_ur``, ``yhe``), the scalar ``meta`` entries as
+        ``meta_<name>`` and ``input_names``."""
+        extra = {}
+        if self.bounds_lo is not None:
+            extra["bounds_lo"] = np.asarray(self.bounds_lo)
+            extra["bounds_hi"] = np.asarray(self.bounds_hi)
+        if self.coeffs_in is not None:
+            extra.update({name: np.asarray(getattr(self, name)) for name in (
+                "coeffs_in", "y_mean_in", "x_mean_in", "x_std_in",
+                "blend_lo", "blend_hi", "blend_margin")})
+            extra["degree_in"] = int(self.degree_in)
+        for name in ("m_ncdm", "deg_ncdm", "n_ur", "yhe"):
+            v = getattr(self, name)
+            if v is not None:
+                extra[name] = float(v)
+        for k, v in (self.meta or {}).items():
+            if k not in extra and np.isscalar(v):
+                extra[f"meta_{k}"] = v
+        extra["input_names"] = np.asarray(list(self.input_names))
+        np.savez_compressed(path, kgrid=self.kgrid, z_grid=self.z_grid,
+                            coeffs=np.asarray(self.coeffs), y_mean=np.asarray(self.y_mean),
+                            x_mean=np.asarray(self.x_mean), x_std=np.asarray(self.x_std),
+                            degree=self.degree, **extra)
+
     @classmethod
     def load(cls, path) -> "PkEmulator":
         with np.load(path) as z:
@@ -317,6 +461,104 @@ class PkEmulator:
                 n_ur=opt("n_ur"), yhe=opt("yhe"), meta=meta or None,
                 **inner,
             )
+
+
+def _design_numpy(xn: np.ndarray, degree: int) -> np.ndarray:
+    """The (n, nterms) monomial design of the normalised inputs on the host,
+    in the term order of :func:`poly_exponents`, each column the running
+    product of its factors in ``combinations_with_replacement`` order (the
+    JAX fit's arithmetic, bit for bit)."""
+    cols = [np.ones(len(xn))]
+    for d in range(1, degree + 1):
+        for combo in combinations_with_replacement(range(xn.shape[1]), d):
+            col = np.ones(len(xn))
+            for j in combo:
+                col = col * xn[:, j]
+            cols.append(col)
+    return np.stack(cols, axis=1)
+
+
+def _ridge_fit(x, y, degree: int, ridge: float, ncomp: int):
+    """One PCA + polynomial-ridge fit (host NumPy, float64).  Returns
+    (coeffs, y_mean, x_mean, x_std); the log-r_drag column (last) is refit
+    outside the PCA, whose compression would dilute that one small-variance
+    scalar."""
+    y_mean = y.mean(0)
+    yc = y - y_mean
+    _, _, vt = np.linalg.svd(yc, full_matrices=False)
+    comps = vt[:ncomp]
+    c = yc @ comps.T
+    x_mean, x_std = x.mean(0), x.std(0) + 1e-12
+    a = _design_numpy((x - x_mean) / x_std, degree)
+    gram = a.T @ a + ridge * np.eye(a.shape[1])
+    coeffs = np.linalg.solve(gram, a.T @ c) @ comps  # (nterms, d)
+    coeffs[:, -1] = np.linalg.solve(gram, a.T @ yc[:, -1])
+    return coeffs, y_mean, x_mean, x_std
+
+
+def train_pk_emulator(x, y, kgrid, z_grid, ncomp: int = 96, degree: int = 5,
+                      ridge: float = 1e-8, seed: int = 0, val_frac: float = 0.1,
+                      meta: dict | None = None, inner_bounds=None, degree_in: int = 7,
+                      margin_frac: float = 0.15, device=None) -> tuple:
+    """Fit the PCA + polynomial-ridge :class:`PkEmulator` on solver outputs
+    (the JAX function, on the host in float64).
+
+    x: (n, nin) raw inputs; y: (n, d) raw targets (log transfers + log
+    r_drag).  A ``default_rng(seed)`` permutation holds out
+    max(4, val_frac·n) points.  ``meta`` carries the artifact's provenance
+    (``bounds_lo``/``bounds_hi``, ``m_ncdm``, ``deg_ncdm``, ``n_ur``,
+    ``yhe``, ``input_names``, solver settings).  With ``inner_bounds=(lo,
+    hi)`` a second degree-``degree_in`` ridge is fit on the training samples
+    inside the margin-expanded inner box and blended in (w = 1 over the
+    nominal box).  The held-out prediction runs through :meth:`PkEmulator.raw`
+    on ``device`` (the card unless ``"cpu"``) in float64.
+    Returns (PkEmulator, dict of validation errors)."""
+    device = resolve_device(device)
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    n = x.shape[0]
+    perm = np.random.default_rng(seed).permutation(n)
+    nval = max(4, int(val_frac * n))
+    vi, ti = perm[:nval], perm[nval:]
+    coeffs, y_mean, x_mean, x_std = _ridge_fit(x[ti], y[ti], degree, ridge, ncomp)
+
+    inner_kw = {}
+    if inner_bounds is not None:
+        lo_i = np.asarray(inner_bounds[0], np.float64)
+        hi_i = np.asarray(inner_bounds[1], np.float64)
+        margin = margin_frac * (hi_i - lo_i)
+        in_exp = np.all((x >= lo_i - margin) & (x <= hi_i + margin), axis=1)
+        ie = ti[in_exp[ti]]
+        ci, ymi, xmi, xsi = _ridge_fit(x[ie], y[ie], degree_in, ridge, ncomp)
+        inner_kw = dict(coeffs_in=ci, y_mean_in=ymi, x_mean_in=xmi, x_std_in=xsi,
+                        degree_in=degree_in, blend_lo=lo_i, blend_hi=hi_i,
+                        blend_margin=margin)
+
+    meta = dict(meta or {})
+    emu = PkEmulator(
+        coeffs=coeffs, y_mean=y_mean, x_mean=x_mean, x_std=x_std, degree=degree,
+        kgrid=np.asarray(kgrid), z_grid=np.asarray(z_grid),
+        input_names=tuple(meta.get("input_names", ("omega_b", "omega_cdm", "h"))),
+        bounds_lo=meta.pop("bounds_lo", None), bounds_hi=meta.pop("bounds_hi", None),
+        m_ncdm=meta.pop("m_ncdm", None), deg_ncdm=meta.pop("deg_ncdm", None),
+        n_ur=meta.pop("n_ur", None), yhe=meta.pop("yhe", None),
+        meta={k: v for k, v in meta.items() if k != "input_names"} or None,
+        **inner_kw)
+    with torch.no_grad():
+        pred = emu.raw(torch.as_tensor(x[vi], dtype=torch.float64, device=device))
+    err = np.abs(pred.cpu().numpy() - y[vi])
+    report = {
+        "val_max_abs_logT": float(err[:, :-1].max()),
+        "val_rms_logT": float(np.sqrt((err[:, :-1] ** 2).mean())),
+        "val_max_abs_log_rdrag": float(err[:, -1].max()),
+        "n_train": int(ti.size), "n_val": int(vi.size),
+    }
+    if inner_bounds is not None:
+        v_in = np.all((x[vi] >= lo_i) & (x[vi] <= hi_i), axis=1)
+        if v_in.any():
+            report["val_inner_max_abs_logT"] = float(err[v_in, :-1].max())
+        report["n_train_inner"] = int(ie.size)
+    return emu, report
 
 
 @dataclass(eq=False)

@@ -122,6 +122,16 @@ def gradient(f, dx):
                       (f[..., -1:] - f[..., -2:-1]) / dx], dim=-1)
 
 
+def cumsum_rows(x):
+    """``torch.cumsum(x, -1)`` of a (W, n) batch, each row summed in the
+    same order whatever W: on the card a lone row (W = 1) takes another scan
+    (cub's device-wide one) than the rows of a batch, so it is scanned as
+    the first of two copies of itself."""
+    if x.shape[0] == 1 and x.is_cuda:
+        return torch.cumsum(x.expand(2, -1), dim=-1)[:1]
+    return torch.cumsum(x, dim=-1)
+
+
 def interp(x, xp, fp):
     """``jnp.interp`` on a grid ``xp`` (n,) shared by the batch: ``fp``
     (..., n), ``x`` (..., m) → (..., m); constant beyond both ends."""
@@ -213,7 +223,7 @@ def background_tables(par: CosmoParams, lna_min: float = -21.0,
     dlna = lna[1] - lna[0]
     cumt = torch.cat([
         torch.zeros_like(conf_h[:, :1]),
-        torch.cumsum(0.5 * (integrand[:, 1:] + integrand[:, :-1]) * dlna, dim=-1),
+        cumsum_rows(0.5 * (integrand[:, 1:] + integrand[:, :-1]) * dlna),
     ], dim=-1)
     om_r_tot = om_g + om_ur + om_ncdm_massless * rho_fac[:, :1]
     tau_start = a[0] / (h0 * torch.sqrt(om_r_tot))
@@ -456,13 +466,13 @@ def _thermo_on_grid(par: CosmoParams, bg: Background) -> Thermo:
     integ = 1.0 / (bg.conf_h * torch.sqrt(3.0 * (1.0 + r_bg)))
     rs = torch.cat([
         torch.zeros_like(integ[:, :1]),
-        torch.cumsum(0.5 * (integ[:, 1:] + integ[:, :-1]) * dlna, dim=-1),
+        cumsum_rows(0.5 * (integ[:, 1:] + integ[:, :-1]) * dlna),
     ], dim=-1)
     rs = rs + bg.tau[:, :1] / math.sqrt(3.0)
 
     # drag depth from the LATE end (suffix sum; see the JAX module)
     suffix = lambda mid: torch.cat(
-        [mid.flip(-1).cumsum(-1).flip(-1), torch.zeros_like(mid[:, :1])], dim=-1)
+        [cumsum_rows(mid.flip(-1)).flip(-1), torch.zeros_like(mid[:, :1])], dim=-1)
     ointeg = dkappa / (r_bg * bg.conf_h)
     drag = suffix(0.5 * (ointeg[:, 1:] + ointeg[:, :-1]) * dlna)
     # z_drag: the drag depth crosses 1; three-point quadratic root in log

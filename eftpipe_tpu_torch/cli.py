@@ -33,7 +33,7 @@ import sys
 import numpy as np
 
 _UNPORTED = {
-    "bench": "the port has no benchmark yet (ROADMAP: the benchmark PR, after A9)",
+    "bench": "the port has no benchmark yet (ROADMAP: the benchmark PR)",
 }
 
 

@@ -13,6 +13,9 @@ them over here, so that both sides compute from IDENTICAL constants:
 * :func:`emulator_from_numpy` — a ``PkEmulator`` from its arrays;
 * :func:`transfer_emulator_from_numpy` — a ``TransferEmulator`` (the MLP of
   the ``emulator`` provider) from its parameters;
+* :func:`mlp_params_from_numpy` — MLP parameters as tensors (the JAX
+  ``init_mlp`` output or trained weights), e.g. the initial parameters of
+  ``emulator._train_mlp``;
 * :func:`analysis_from_numpy` — a config-driven ``Analysis``: its pipelines'
   tables, frozen templates, providers, bases, likelihood blocks and
   parameter space;
@@ -109,6 +112,14 @@ def transfer_emulator_from_numpy(state: dict) -> TransferEmulator:
               for layer in state["params"]]
     extra = {"input_names": tuple(state["input_names"])} if "input_names" in state else {}
     return TransferEmulator(params=params, **arrays, **extra)
+
+
+def mlp_params_from_numpy(params, dtype=torch.float64, device=None) -> list:
+    """``[{"w": (din, dout), "b": (dout,)}, ...]`` (NumPy) as tensors of
+    ``dtype`` on ``device`` (the card unless ``"cpu"``)."""
+    device = resolve_device(device)
+    return [{k: torch.as_tensor(np.array(layer[k]), dtype=dtype, device=device) for k in "wb"}
+            for layer in params]
 
 
 def _basis(ts: dict):

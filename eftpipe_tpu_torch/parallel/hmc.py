@@ -18,6 +18,14 @@ generator's state lives on the host), so that the Python leapfrog loop never
 waits for the device.  The draws are kept apart from the update
 (:meth:`HMC.draws` / :func:`_transition`) so that the update can be fed any
 draws.
+
+With ``mesh=`` (:func:`.mesh.walker_mesh`) every rank holds all chains and
+draws the same numbers; each evaluates ``logp`` and its gradient on its
+block of the chains, and one ``all_gather`` of the values and one of the
+(chains, ndim) gradients rebuild the batch, so that every rank takes the
+same leapfrog, accept and warmup steps (the warmup's cross-chain statistics
+need no collective of their own) and the chains equal the one-process
+chains.
 """
 
 from __future__ import annotations
@@ -28,8 +36,6 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-
-from .sampler import _MESH_ITEM
 
 
 class HMCState(NamedTuple):
@@ -142,6 +148,8 @@ class HMC:
     n_leapfrog : leapfrog steps per proposal (the upper end of the randomised
         trajectory length)
     target_accept : dual-averaging target during warmup
+    mesh : a :class:`.mesh.WalkerMesh` splitting each evaluation over its
+        ranks (the number of chains a multiple of its size)
     """
 
     logp: Callable
@@ -152,15 +160,17 @@ class HMC:
     mesh: object | None = None
     mesh_axis: str = "walkers"
 
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH_ITEM)
-
     def _lpg(self, q):
         """(logp (nchains,), ∇logp (nchains, ndim)) of a batch: one forward
-        and one backward.  The value is pinned to the chain dtype (a
-        posterior that works in another dtype would otherwise promote the
-        acceptance and dual-averaging arithmetic)."""
+        and one backward (on the mesh: of this rank's block, gathered).  The
+        value is pinned to the chain dtype (a posterior that works in
+        another dtype would otherwise promote the acceptance and
+        dual-averaging arithmetic)."""
+        if self.mesh is not None:
+            return self.mesh.evaluate(self._lpg_local, q)
+        return self._lpg_local(q)
+
+    def _lpg_local(self, q):
         with torch.enable_grad():
             x = q.detach().requires_grad_(True)
             v = self.logp(x)

@@ -15,6 +15,12 @@ JAX driver wrote resumes too (``convert.py::driver_state_from_numpy``).
 Chain output is getdist-compatible: ``<prefix>.1.txt`` with columns
 ``weight  -logpost  <params...>  <derived...>``, a ``<prefix>.paramnames``
 sidecar and ``<prefix>.params.json`` — the JAX driver's files.
+
+With ``mesh=`` (:func:`.mesh.walker_mesh`) the walkers live on the mesh's
+device, every rank runs the same chain (the samplers split only the
+evaluations), only rank 0 writes the checkpoint and the chain files, and
+every rank resumes from the same checkpoint, so a resumed run on N ranks
+equals the one-process resume.
 """
 
 from __future__ import annotations
@@ -44,6 +50,13 @@ def _atomic_savez(path: Path, **arrays) -> None:
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
     os.replace(tmp, path)
+
+
+def _same_device(a, b) -> bool:
+    a, b = torch.device(a), torch.device(b)
+    index = lambda d: (torch.cuda.current_device() if d.index is None else d.index) \
+        if d.type == "cuda" else d.index
+    return a.type == b.type and index(a) == index(b)
 
 
 def _host(t) -> np.ndarray:
@@ -135,6 +148,9 @@ class MCMCDriver:
     derived_fn : optional ``theta_batch (n, ndim) -> (n, nderived)``
         evaluated on the final chain and written beside it
     device : where the walkers live; the card unless ``"cpu"`` is asked for
+        (with a mesh: the mesh's device)
+    mesh : a :class:`.mesh.WalkerMesh` over which the samplers split their
+        evaluations (``nwalkers`` a multiple of twice its size)
     """
 
     logp: Callable
@@ -151,7 +167,7 @@ class MCMCDriver:
     derived_names: list[str] | None = None
     derived_fn: Callable | None = None
     min_blocks_before_check: int = 2
-    mesh: object | None = None       # not ported: raises NotImplementedError
+    mesh: object | None = None       # .mesh.WalkerMesh: split the walker axis
     sampler_kind: str = "stretch"    # "stretch" | "hmc"
     # HMC-only knobs (sampler_kind="hmc"); inv_mass0 seeds the warmup metric
     # with a known posterior scale (the diagonal of a Laplace covariance)
@@ -162,7 +178,13 @@ class MCMCDriver:
     device: str | torch.device | None = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+        elif self.device is not None and not _same_device(self.device, self.mesh.device):
+            raise ValueError(f"device {self.device} is not the mesh's {self.mesh.device}")
+        else:
+            self.device = self.mesh.device
+        self._writes = self.mesh is None or self.mesh.rank == 0
         if self.sampler_kind == "stretch":
             self.sampler = EnsembleSampler(
                 logp=self.logp, nwalkers=self.nwalkers, ndim=self.ndim,
@@ -178,7 +200,7 @@ class MCMCDriver:
 
     # -- persistence ------------------------------------------------------
     def _save_state(self, gen, walkers, chain_blocks, logp_blocks, nsteps_done):
-        if self._ckpt is None:
+        if self._ckpt is None or not self._writes:
             return
         self._ckpt.parent.mkdir(parents=True, exist_ok=True)
         extra = self.sampler.state_arrays() if hasattr(self.sampler, "state_arrays") else {}
@@ -322,7 +344,9 @@ class MCMCDriver:
             chain=chain, logps=logps, rminus1=rminus1,
             accept_rate=float(np.mean(accepts)) if accepts else float("nan"),
             converged=converged, tau=tau)
-        if self.out is not None:
+        if self.out is not None and self._writes:
             derived = self._derived(chain) if self.derived_fn is not None else None
             self.write_chains(result, derived)
+        if self.mesh is not None:
+            self.mesh.barrier()  # every rank returns after rank 0's files are written
         return result

@@ -9,6 +9,13 @@ draws are kept apart from the update (:func:`stretch_draws` /
 :func:`_half_update`) so that the update can be fed any draws.  A block of
 steps stays on the device: nothing in :meth:`EnsembleSampler.run` reads a
 value back to the host.
+
+With ``mesh=`` (:func:`.mesh.walker_mesh`) the state stays whole and equal
+on every rank, and so do the draws (every rank's generator has the same
+seed); each rank evaluates ``logp`` on its block of the proposed half and
+an ``all_gather`` rebuilds the half's values before the common accept step:
+one collective of W/2 numbers a half-step, and the chain equals the
+one-process chain.
 """
 
 from __future__ import annotations
@@ -17,9 +24,6 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
-
-_MESH_ITEM = ("mesh= (sharding the walker axis over several cards) is not ported "
-              "yet (ROADMAP A13)")
 
 
 def stretch_draws(gen: torch.Generator, n: int, n_other: int, like: torch.Tensor):
@@ -71,7 +75,8 @@ def init_walkers(gen: torch.Generator, center, nwalkers: int, scale: float = 1e-
 @dataclass(eq=False)
 class EnsembleSampler:
     """Ensemble sampler over a batched log-posterior ``logp(thetas (W, d)) →
-    (W,)``."""
+    (W,)``; ``mesh`` (a :class:`.mesh.WalkerMesh`) splits each evaluation
+    over its ranks."""
 
     logp: Callable
     nwalkers: int
@@ -82,15 +87,22 @@ class EnsembleSampler:
     mesh_axis: str = "walkers"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH_ITEM)
         if self.nwalkers % 2:
             raise ValueError("nwalkers must be even")
+        if self.mesh is not None and self.nwalkers % (2 * self.mesh.size):
+            raise ValueError(
+                f"nwalkers={self.nwalkers} must be a multiple of twice the mesh size "
+                f"({self.mesh.size}) so each half-ensemble shards evenly")
 
-    def _logp_batched(self, thetas):
+    def _logp_local(self, thetas):
         if self.chunk_size is None:
             return self.logp(thetas)
         return self.logp(thetas, chunk=self.chunk_size)
+
+    def _logp_batched(self, thetas):
+        if self.mesh is None:
+            return self._logp_local(thetas)
+        return self.mesh.evaluate(self._logp_local, thetas)
 
     def init(self, gen: torch.Generator, center, scale: float = 1e-3):
         return init_walkers(gen, center, self.nwalkers, scale)

@@ -146,3 +146,79 @@ def test_eb_solve_matches_plain_on_card(cuda):
         r = torch.cat([getattr(o, name) for o in ref], -1)
         g = getattr(got, name)[..., sel]
         assert float((g - r).abs().max() / r.abs().max()) <= 1e-9, name
+
+
+@pytest.mark.gpu
+def test_batched_recipe_solve_equals_single_solves(cuda):
+    """The training recipe's solver (the 8-corner envelope of the 3-D box,
+    288 k × 13 z): a W=4 batch gives each cosmology the stored samples
+    (log T_m, log T_cb, log r_drag) of its own W=1 solve, bit for bit."""
+    from eftpipe_tpu_torch.boltzmann import einstein_boltzmann as eb
+    from eftpipe_tpu_torch.tools import train_solver_emulator as tool
+
+    design = tool.sample_design(8, 0.4)
+    with torch.no_grad():
+        solver = tool.design_solver(design, device=cuda)
+        assert solver.device.type == "cuda"
+
+        def samples(rows):
+            x = torch.as_tensor(design["x"][rows], dtype=torch.float64, device=cuda)
+            lp = solver(eb.box_params(x[:, 0], x[:, 1], x[:, 2], tool.NEUTRINO["m_ncdm"],
+                                      device=cuda))
+            assert lp.pk.is_cuda
+            return (*eb.log_transfers(lp), torch.log(lp.rs_drag))
+
+        batched = samples([0, 1, 2, 3])
+        for i in range(4):
+            for b, s in zip(batched, samples([i])):
+                assert torch.isfinite(b[i]).all()
+                assert torch.equal(b[i], s[0])
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_equals_no_mesh(cuda):
+    """A one-rank NCCL group on the card: the stretch sampler under
+    ``walker_mesh()`` takes the steps of the sampler without it, bit for
+    bit."""
+    import socket
+
+    import torch.distributed as dist
+    from eftpipe_tpu_torch.parallel.mesh import walker_mesh
+    from eftpipe_tpu_torch.parallel.sampler import EnsembleSampler
+
+    mean = torch.as_tensor(MEAN, device=cuda)
+    sigma = torch.as_tensor(SIGMA_DRIVER, device=cuda)
+
+    def lp(x):
+        return -0.5 * (((x - mean) / sigma) ** 2).sum(-1)
+
+    x0 = mean + 0.1 * torch.randn((16, 3), generator=torch.Generator().manual_seed(0),
+                                  dtype=torch.float64).to(cuda)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = walker_mesh()
+        got = EnsembleSampler(logp=lp, nwalkers=16, ndim=3, mesh=mesh).run(
+            torch.Generator(device=cuda).manual_seed(1), x0, nsteps=5)
+    finally:
+        dist.destroy_process_group()
+    want = EnsembleSampler(logp=lp, nwalkers=16, ndim=3).run(
+        torch.Generator(device=cuda).manual_seed(1), x0, nsteps=5)
+    assert mesh.collectives == 1 + 2 * 5
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_transfer_training_keeps_its_parameters_on_the_card(cuda):
+    from eftpipe_tpu_torch.boltzmann.emulator import train_transfer_emulator
+
+    k = np.logspace(-4, 0.3, 50)
+    emu = train_transfer_emulator(k, n_samples=64, width=16, depth=2, steps=5,
+                                  dtype=torch.float32, device=cuda)
+    assert all(t.is_cuda and t.dtype == torch.float32 for layer in emu.params
+               for t in layer.values())
+    t = emu(torch.tensor([[0.0223, 0.118, 0.69, 0.965]], dtype=torch.float32, device=cuda))
+    assert t.is_cuda and t.shape == (1, k.size) and bool(torch.isfinite(t).all())

@@ -28,7 +28,8 @@ _MODULES = [
     "eftpipe_tpu_torch.tables.loop_matrices", "eftpipe_tpu_torch.tables.qcoef",
     "eftpipe_tpu_torch.parallel", "eftpipe_tpu_torch.parallel.diagnostics",
     "eftpipe_tpu_torch.parallel.sampler", "eftpipe_tpu_torch.parallel.hmc",
-    "eftpipe_tpu_torch.parallel.mcmc",
+    "eftpipe_tpu_torch.parallel.mcmc", "eftpipe_tpu_torch.parallel.mesh",
+    "eftpipe_tpu_torch.tools", "eftpipe_tpu_torch.tools.train_solver_emulator",
     "eftpipe_tpu_torch.utils.dicttools", "eftpipe_tpu_torch.utils.safe_expr",
     "eftpipe_tpu_torch.api.products", "eftpipe_tpu_torch.api.model",
     "eftpipe_tpu_torch.api.orchestrate", "eftpipe_tpu_torch.analysis",
@@ -44,26 +45,60 @@ _MODULES = [
 ]
 
 
-def _run(code: str, cwd=ROOT):
-    return subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True,
-                          text=True, timeout=300)
+@pytest.fixture(scope="module")
+def scripts(tmp_path_factory):
+    """The interpreters the tests below read, started together: one imports
+    every module of the port, then runs ``chip_smoke.py`` and
+    ``hmc_flagship.py`` as modules (each stops at its missing card) and
+    reports after each step whether JAX or the JAX package got imported
+    (``imports``); the others run ``chip_smoke.py`` and ``hmc_flagship.py``
+    as scripts, and ``chip_smoke.py`` alone in an empty directory
+    (``CompletedProcess``-like (returncode, stdout))."""
+    import json
 
-
-def test_port_imports_without_jax_or_the_jax_package():
     code = (
-        "import sys, importlib\n"
+        "import sys, importlib, json, runpy\n"
+        "def bad():\n"
+        "    return [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'jaxlib' or m == 'eftpipe_tpu' or m.startswith('eftpipe_tpu.')]\n"
+        "out = {}\n"
         f"[importlib.import_module(m) for m in {_MODULES!r}]\n"
         "import eftpipe_tpu_torch as p\n"
         "assert (p.EnsembleSampler, p.MCMCDriver, p.HMC)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'jaxlib' or m == 'eftpipe_tpu' or m.startswith('eftpipe_tpu.')]\n"
-        "assert not bad, bad\n"
         "import torch\n"
-        "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
-        "print('clean')\n"
+        "out['port'] = dict(bad=bad(), tf32=torch.backends.cuda.matmul.allow_tf32)\n"
+        "for script in ('chip_smoke.py', 'hmc_flagship.py'):\n"
+        "    try:\n"
+        "        runpy.run_path(script, run_name='not_main')\n"
+        "    except SystemExit:\n"
+        "        pass\n"
+        "    out[script] = dict(bad=bad())\n"
+        "print(json.dumps(out))\n"
     )
-    res = _run(code)
-    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+    alone = tmp_path_factory.mktemp("alone")
+    (alone / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    run = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = {
+        "imports": subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, **run),
+        "chip_smoke": subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                                       **run),
+        "hmc_flagship": subprocess.Popen([sys.executable, str(ROOT / "hmc_flagship.py")],
+                                         cwd=ROOT, **run),
+        "alone": subprocess.Popen([sys.executable, "chip_smoke.py"], cwd=alone,
+                                  env={"PATH": "/usr/bin:/bin", "HOME": str(alone)}, **run),
+    }
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        out[name] = (proc.returncode, stdout, stderr)
+    rc, stdout, stderr = out["imports"]
+    assert rc == 0, stderr
+    out["imports"] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+def test_port_imports_without_jax_or_the_jax_package(scripts):
+    assert scripts["imports"]["port"] == dict(bad=[], tf32=False)
 
 
 def test_no_jax_import_statement_in_the_port_sources():
@@ -71,61 +106,36 @@ def test_no_jax_import_statement_in_the_port_sources():
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|eftpipe_tpu)(\s|\.|$)", re.M)
     files = list((ROOT / "eftpipe_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "hmc_flagship.py", ROOT / "tests" / "test_torch_gpu.py"]
+        ROOT / "chip_smoke.py", ROOT / "hmc_flagship.py", ROOT / "tests" / "test_torch_gpu.py",
+        ROOT / "tests" / "test_torch_mesh.py"]
     assert len(files) > 20
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
 
 
-def test_chip_smoke_fails_without_a_card_and_imports_no_jax():
+def test_chip_smoke_fails_without_a_card_and_imports_no_jax(scripts):
     """Run as a script on a CUDA-less machine: non-zero exit, no result line,
     and the import of jax is never reached."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode != 0
-    assert '"ok"' not in res.stdout
-    code = (
-        "import sys, runpy\n"
-        "try:\n"
-        "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"
-        "except SystemExit:\n"
-        "    pass\n"
-        "assert 'jax' not in sys.modules and 'eftpipe_tpu' not in sys.modules\n"
-        "print('clean')\n"
-    )
-    res = _run(code)
-    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+    rc, stdout, _ = scripts["chip_smoke"]
+    assert rc != 0 and '"ok"' not in stdout
+    assert scripts["imports"]["chip_smoke.py"] == dict(bad=[])
 
 
-def test_hmc_flagship_fails_without_a_card():
+def test_hmc_flagship_fails_without_a_card(scripts):
     """The HMC check script needs the card: without one it exits non-zero,
     prints no result and never imports jax."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    res = subprocess.run([sys.executable, str(ROOT / "hmc_flagship.py")], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode != 0 and "hmc_flagship" not in res.stdout
-    code = (
-        "import sys, runpy\n"
-        "try:\n"
-        "    runpy.run_path('hmc_flagship.py', run_name='not_main')\n"
-        "except SystemExit:\n"
-        "    pass\n"
-        "assert 'jax' not in sys.modules and 'eftpipe_tpu' not in sys.modules\n"
-        "print('clean')\n"
-    )
-    res = _run(code)
-    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+    rc, stdout, _ = scripts["hmc_flagship"]
+    assert rc != 0 and "hmc_flagship" not in stdout
+    assert scripts["imports"]["hmc_flagship.py"] == dict(bad=[])
 
 
-def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
-    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
-    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
-                         capture_output=True, text=True, timeout=300,
-                         env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
-    assert res.returncode != 0 and '"ok"' not in res.stdout
+def test_chip_smoke_alone_in_a_directory_fails(scripts):
+    rc, stdout, _ = scripts["alone"]
+    assert rc != 0 and '"ok"' not in stdout
 
 
 def test_cuda_entry_points_raise_without_a_card(tmp_path):

@@ -542,7 +542,9 @@ def test_analysis_from_numpy_carries_jax_state(template):
 
 
 def test_mesh_and_unported_providers_raise(template, tmp_path):
-    """``mesh=`` (A13) raises naming its item; the solver provider (A8, once
+    """``run_mcmc(mesh=)`` (A13, once listed here as raising) on a one-rank
+    gloo group gives the mesh-less chain bit for bit, and refuses a mesh on
+    another device; the solver provider (A8, once
     listed here) builds on the analysis' device, and only its gradient on
     the card raises (A8.1); the ``emulator`` provider (A7, once listed here)
     builds from a ``TransferEmulator.save`` file and a config-built analysis
@@ -552,9 +554,23 @@ def test_mesh_and_unported_providers_raise(template, tmp_path):
     from eftpipe_tpu_torch.convert import eb_solver_from_numpy
     from test_torch_compat import write_transfer_emulator
 
+    import torch.distributed as dist
+    from eftpipe_tpu_torch.parallel.mesh import walker_mesh
+
     _, info, tan, _, _, _ = template
-    with pytest.raises(NotImplementedError, match="A13"):
-        tan.run_mcmc(nwalkers=8, max_steps=1, mesh=object())
+    run = dict(nwalkers=8, max_steps=2, block=2, rhat_tol=-1.0, with_derived=False, resume=False)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        mesh = walker_mesh(devices=["cpu"])
+        got = tan.run_mcmc(mesh=mesh, **run)
+        assert mesh.collectives == 1 + 2 * 2
+        with pytest.raises(ValueError, match="not the mesh's"):
+            tan.run_mcmc(mesh=dataclasses.replace(mesh, device=torch.device("meta")), **run)
+    finally:
+        dist.destroy_process_group()
+    want = tan.run_mcmc(**run)
+    np.testing.assert_array_equal(got.chain, want.chain)
+    np.testing.assert_array_equal(got.logps, want.logps)
     cfg = TConfig(**NARROW)
     grid = np.array([[-12.0, -6.0, 0.0]])
     solver = eb_solver_from_numpy(dict(

@@ -167,15 +167,37 @@ def test_dual_averaging_sequence_matches_jax():
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12)
 
 
-def test_mesh_is_not_ported():
+def test_mesh_is_not_ported(tmp_path):
+    """(Named when ``mesh=`` raised.)  On a one-rank gloo group the samplers
+    and the driver take ``mesh=``; the stretch chain equals the mesh-less
+    one bit for bit and evaluates through one all_gather a half-step; an
+    ensemble that does not split over twice the mesh raises.  The
+    two-process runs are ``tests/test_torch_mesh.py``'s."""
+    import torch.distributed as dist
+    from eftpipe_tpu_torch.parallel.mesh import walker_mesh
+
     _, tlp = gaussian(MEAN, SIGMA)
-    for make in (lambda: tsamp.EnsembleSampler(logp=tlp, nwalkers=8, ndim=3, mesh=object()),
-                 lambda: thmc.HMC(logp=tlp, ndim=3, mesh=object()),
-                 lambda: MCMCDriver(logp=tlp, ndim=3, mesh=object(), device="cpu"),
-                 lambda: MCMCDriver(logp=tlp, ndim=3, mesh=object(), sampler_kind="hmc",
-                                    device="cpu")):
-        with pytest.raises(NotImplementedError, match="A13"):
-            make()
+    x0 = torch.as_tensor(MEAN) + 0.1 * torch.randn((8, 3), generator=torch.Generator().manual_seed(0),
+                                                   dtype=F64)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        mesh = walker_mesh(devices=["cpu"])
+        got = tsamp.EnsembleSampler(logp=tlp, nwalkers=8, ndim=3, mesh=mesh).run(
+            torch.Generator().manual_seed(1), x0, nsteps=4)
+        assert mesh.collectives == 1 + 2 * 4
+        thmc.HMC(logp=tlp, ndim=3, mesh=mesh)
+        for kind in ("stretch", "hmc"):
+            assert MCMCDriver(logp=tlp, ndim=3, mesh=mesh, sampler_kind=kind).device == mesh.device
+        with pytest.raises(ValueError, match="not the mesh's"):
+            MCMCDriver(logp=tlp, ndim=3, mesh=mesh, device="meta")
+        with pytest.raises(ValueError, match="nwalkers must be even"):
+            tsamp.EnsembleSampler(logp=tlp, nwalkers=7, ndim=3, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    want = tsamp.EnsembleSampler(logp=tlp, nwalkers=8, ndim=3).run(
+        torch.Generator().manual_seed(1), x0, nsteps=4)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_driver_defaults_to_the_card():

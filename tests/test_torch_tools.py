@@ -126,7 +126,7 @@ class _FakeOracle:
                     da=0.5 + 0.1 * z, h=params["h"], rdrag=147.0, sigma8_z=0.6)
 
 
-def test_oracle_provider_matches_jax():
+def test_oracle_provider_matches_jax(monkeypatch):
     names = ("omega_cdm", "h", "ln10As")
     rows = [dict(zip(names, v)) for v in ((0.12, 0.68, 3.04), (0.14, 0.7, 3.0), (0.1, 0.65, 3.1))]
     tprov = tbridges.OracleProvider(TConfig(), 0.7, _FakeOracle(), da_fid=0.6, h_fid=1.4)
@@ -145,8 +145,24 @@ def test_oracle_provider_matches_jax():
     for oracle in (tbridges.ClassyOracle, tbridges.CambOracle):
         with pytest.raises(ImportError):
             oracle()
-    with pytest.raises(NotImplementedError, match="A9"):
-        tbridges.train_emulator_from_oracle(_FakeOracle(), 0.7, np.ones(3), {"h": (0.6, 0.7)})
+    # training on the oracle: the targets the transfer emulator is fit on
+    # are the JAX function's (both trainers captured, not run)
+    from eftpipe_tpu.boltzmann import emulator as jemu
+    from eftpipe_tpu_torch.boltzmann import emulator as temu
+
+    caught = {}
+    k = np.logspace(-3, 0, 12)
+    bounds = {"omega_cdm": (0.1, 0.14), "h": (0.6, 0.7), "ln10As": (3.0, 3.1), "ns": (0.94, 0.99)}
+    for side, mod, bridges in (("jax", jemu, jbridges), ("port", temu, tbridges)):
+        monkeypatch.setattr(mod, "train_transfer_emulator",
+                            lambda kg, side=side, **kw: caught.setdefault(side, (kg, kw)))
+        bridges.train_emulator_from_oracle(_FakeOracle(), 0.7, k, bounds, steps=7)
+    (jk, jkw), (tk, tkw) = caught["jax"], caught["port"]
+    np.testing.assert_array_equal(tk, jk)
+    assert tkw["bounds"] == jkw["bounds"] and tkw["steps"] == jkw["steps"] == 7
+    for row in ([0.12, 0.68, 3.04, 0.96], [0.14, 0.61, 3.09, 0.95]):
+        np.testing.assert_allclose(tkw["oracle"](np.array(row)), jkw["oracle"](np.array(row)),
+                                   rtol=1e-14)
 
 
 def test_random_params_from_covmat_match_jax(tmp_path):
