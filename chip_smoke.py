@@ -111,6 +111,29 @@ Phases, each printing one JSON line:
    critical path, one float64 operation a cycle, in this line only); (d) a float32 LRG ``Analysis`` on the ``solver`` provider at W=4:
    finite ``logp`` and the launches of ``eb_solve``, ``recomb_scan`` and
    ``qf_real`` in one ``logp`` call.
+10b. ``solver_grad`` — the solver's gradient on the card (forward mode: the
+   tangent kernels ``recomb_scan_jvp`` and ``eb_solve_jvp``, the same source
+   as the forward kernels on a dual number, driven by
+   ``einstein_boltzmann._SolverTables``): (a) ``recomb_scan_jvp`` against
+   forward AD of ``recomb_scan_plain`` (on the host) on (a)'s inputs (W=4,
+   4096 points) with a seeded tangent in the six table fields, ≤ 1e-9 of the largest
+   |tangent|, its primal ≤ 1e-12 from the forward kernel's; (b)
+   ``eb_solve_jvp`` against forward AD of ``eb_solve_plain`` on (b)'s
+   cosmologies, the shortest bucket and the longest mode cut to 600 steps
+   (TCA and after), ≤ 1e-9 of each output's largest |tangent|; (c) the float64
+   LRG analysis on the ``solver`` provider (ω_cdm, h, ln10As, b1, c2
+   sampled) at W=2: ∇logp through the kernels against central differences
+   of its own ``logp`` (two steps, every perturbed point in one batch; each
+   component ≤ 1e-5 at the better step), the solver's outputs with and
+   without the gradient equal bit for bit and ``logp`` within 1e-12, and
+   the launches of one value and gradient (one of each tangent kernel);
+   (d) ``run_mcmc(sampler="hmc", init="ball")`` on the float32 analysis (2
+   chains, ``n_leapfrog=1``, ``warmup_steps=1``, 1 step): finite chain
+   and gradients, the acceptance rate; (e) seconds per value and gradient
+   at W=1 and 4 against seconds per ``logp``, and the tangent kernels alone
+   on the W·P rows of a W=4 value and gradient beside the forward kernels
+   on the same rows, with their bounds; (f) ``laplace_cov()`` raises
+   ``NotImplementedError`` naming A8.2, its message unchanged.
 11. ``training`` — the shipped P(k) artifact retrained at full width by
    ``eftpipe_tpu_torch/tools/train_solver_emulator.py``'s library functions
    (``--n 512 --inner-frac 0.35 --degree 8 --degree-in 7 --ncomp 96``: 512
@@ -145,7 +168,8 @@ turns (theirs, ours, ours, theirs) on the same inputs.
 
 14. ``kernels`` line (launches by path, ``training`` and ``mesh`` among
    them; every kernel instance, float32 and float64 ``qf_real`` and
-   ``cf_half``, ``eb_solve`` and ``recomb_scan``, must appear), the card's
+   ``cf_half``, ``eb_solve`` and ``recomb_scan``, ``eb_solve_jvp`` and
+   ``recomb_scan_jvp``, must appear), the card's
    ``nvidia-smi`` line, and the final ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises: the exit code is then non-zero and no final line is
@@ -164,6 +188,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device (torch.cuda.is_available() is False)\n")
@@ -180,6 +205,7 @@ from eftpipe_tpu_torch.boltzmann.emulator import (DEFAULT_BOUNDS, DEFAULT_PK_ART
                                                    SolverEmulatorProvider, TransferEmulator,
                                                    train_transfer_emulator)
 from eftpipe_tpu_torch.boltzmann import _kernels as bk, einstein_boltzmann as eb, thermo
+from eftpipe_tpu_torch.boltzmann.dual import DenseTangents, tangent_or_zeros
 from eftpipe_tpu_torch.likelihood.parambasis import WestCoastBasis
 from eftpipe_tpu_torch.models.ap import lcdm_da, lcdm_hubble
 from eftpipe_tpu_torch.models.config import EFTConfig
@@ -1524,28 +1550,34 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-def eb_bound(mode_steps: int, longest: int, nbytes: int) -> dict:
-    t_ops = mode_steps * EB_OPS_PER_STEP / FMA_FLOPS[torch.float64] * 1e3
+def eb_bound(mode_steps: int, longest: int, nbytes: int, dual: bool = False) -> dict:
+    """``dual``: the tangent kernel's (``DUAL_OPS_FACTOR`` times the
+    operations; ``nbytes`` given for it)."""
+    ops = mode_steps * EB_OPS_PER_STEP * (DUAL_OPS_FACTOR if dual else 1.0)
+    t_ops = ops / FMA_FLOPS[torch.float64] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-                ops=mode_steps * EB_OPS_PER_STEP, bytes_min=nbytes,
-                critical_path_steps=longest,
-                critical_path_model_ms=longest * EB_OPS_PER_STEP / SM_CLOCK_HZ * 1e3)
+                ops=ops, bytes_min=nbytes, critical_path_steps=longest,
+                critical_path_model_ms=longest * ops / mode_steps / SM_CLOCK_HZ * 1e3)
 
 
-def recomb_bound(nw: int, n: int) -> dict:
-    t_ops = nw * n * RECOMB_OPS_PER_STEP / FMA_FLOPS[torch.float64] * 1e3
-    nbytes = 8 * (8 * nw * n + nw)  # five (W, n) inputs and f_He in, three (W, n) out
+def recomb_bound(nw: int, n: int, dual: bool = False) -> dict:
+    ops = nw * n * RECOMB_OPS_PER_STEP * (DUAL_OPS_FACTOR if dual else 1.0)
+    t_ops = ops / FMA_FLOPS[torch.float64] * 1e3
+    # five (W, n) inputs and f_He in, three (W, n) out; each with its tangent
+    nbytes = (2 if dual else 1) * 8 * (8 * nw * n + nw)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-                ops=nw * n * RECOMB_OPS_PER_STEP, bytes_min=nbytes, critical_path_steps=n,
-                critical_path_model_ms=n * RECOMB_OPS_PER_STEP / SM_CLOCK_HZ * 1e3)
+                ops=ops, bytes_min=nbytes, critical_path_steps=n,
+                critical_path_model_ms=ops / nw / SM_CLOCK_HZ * 1e3)
 
 
-def eb_bytes(tab, dsched: dict, nz: int, nk: int) -> int:
+def eb_bytes(tab, dsched: dict, nz: int, nk: int, dual: bool = False) -> int:
+    """The tables (and their tangent), the schedule, the outputs (and
+    theirs)."""
     nw = tab.stacked.shape[0]
     sched = sum(t.numel() * t.element_size() for t in dsched.values())
-    return tab.stacked.numel() * 8 + sched + 8 * (2 * nw * nz * nk + nw * nk)
+    return (2 if dual else 1) * (tab.stacked.numel() * 8 + 8 * (2 * nw * nz * nk + nw * nk)) + sched
 
 
 def solver_check_recomb(nw: int = 4, n_fine: int = 4096) -> dict:
@@ -1564,16 +1596,24 @@ def solver_check_recomb(nw: int = 4, n_fine: int = 4096) -> dict:
     return row
 
 
+def check_buckets(solver, cut: int, nbuckets: int = 2) -> list:
+    """The comparison schedule of (b): the ``nbuckets`` shortest buckets,
+    and one mode of the longest cut to its first ``cut`` steps (its outputs
+    then sit at the cut)."""
+    idx, grids, masks, _ = solver.buckets[-1]
+    gcut, mcut = grids[:1, :cut + 1], masks[:1, :cut + 1]
+    return list(solver.buckets[:nbuckets]) + [
+        (idx[:1], gcut, mcut, eb.out_indices(gcut, solver.lna_out))]
+
+
 def solver_check_eb(solver, nw: int = 2, cut: int = 1500) -> dict:
     """(b): eb_solve against its plain version on the card: all modes of the
     two shortest buckets, plus one mode of the longest bucket cut to its
     first ``cut`` steps (its outputs then sit at the cut)."""
     par = box_batch(box_draws(nw, seed=12))
     _, _, tab = solver.tables(par)
-    idx, grids, masks, _ = solver.buckets[-1]
-    gcut, mcut = grids[:1, :cut + 1], masks[:1, :cut + 1]
-    buckets = list(solver.buckets[:2]) + [
-        (idx[:1], gcut, mcut, eb.out_indices(gcut, solver.lna_out))]
+    buckets = check_buckets(solver, cut)
+    mcut = buckets[-1][2]
     sel = np.concatenate([b[0] for b in buckets])
     k = solver.k_mpc
     dsched = eb.kernel_schedule(k, buckets).to("cuda")
@@ -1774,27 +1814,388 @@ def solver_phase(lines: list, out_dir=None) -> dict:
         failed.append(f"analysis {res}")
     if failed:
         raise SystemExit(f"chip_smoke: solver: failed {failed}")
-    return dict(by_path=by_path, qf_shapes=qf_shapes, out=out)
+    return dict(by_path=by_path, qf_shapes=qf_shapes, out=out, solver=solver)
 
 
-def solver_rows(out: dict, by_path: dict) -> list:
-    """The kernels line's rows of eb_solve and recomb_scan: the time and
-    bound at the main path's shape (the provider's W=4 solve), the plain
-    version's time at the reduced comparison shape of (a)/(b)."""
-    t4 = out["times"][4]
+def solver_rows(out: dict, grad: dict, by_path: dict) -> list:
+    """The kernels line's rows of the solver's kernels: ``eb_solve`` and
+    ``recomb_scan`` with their time and bound at the main path's shape (the
+    provider's W=4 solve) and their plain versions' time at the reduced
+    comparison shape of the solver phase's (a)/(b); their tangent kernels
+    with their time and bound at the shape of a W=4 value and gradient of
+    the ``solver_grad`` phase's analysis (W·P = 8 rows) and the plain
+    versions' time under forward AD at the comparison shape of its (a)/(b)."""
+    t4, g4 = out["times"][4], grad["times"][4]
     rows = []
     for name, check, bnd, ms in (
             ("eb_solve", out["eb_check"], t4["eb_solve"], t4["eb_solve_ms"]),
-            ("recomb_scan", out["recomb_check"], t4["recomb_scan"], t4["recomb_scan_ms"])):
-        per_path = {p: c[name] for p, c in by_path.items()} | {"mesh": 0}
+            ("recomb_scan", out["recomb_check"], t4["recomb_scan"], t4["recomb_scan_ms"]),
+            ("eb_solve_jvp", grad["eb_check"], g4["eb_solve_jvp"], g4["eb_solve_jvp_ms"]),
+            ("recomb_scan_jvp", grad["recomb_check"], g4["recomb_scan_jvp"],
+             g4["recomb_scan_jvp_ms"])):
+        per_path = {p: c.get(name, 0) for p, c in by_path.items()} | {"mesh": 0}
+        shape = "W=4" if name in SOLVER_REPLACES else f"W*P={g4['rows']}"
         rows.append(dict(
-            name=f"{name}[f64,W=4]", route="cuda", source=SOLVER_SOURCE,
-            replaces=SOLVER_REPLACES[name], launches=sum(per_path.values()),
+            name=f"{name}[f64,{shape}]", route="cuda", source=SOLVER_SOURCE,
+            replaces=(SOLVER_REPLACES | SOLVER_JVP_REPLACES)[name], launches=sum(per_path.values()),
             launches_by_path=per_path, max_abs_err=check["max_abs_err"], ms=ms,
             plain_ms=check["plain_ms"], ms_at_plain_shape=check["ms"],
             plain_shape={k: check[k] for k in ("W", "n", "modes", "mode_steps") if k in check},
             bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the solver's gradient on the card (phase 10b, solver_grad)
+# ---------------------------------------------------------------------------
+# the tangent kernels' operations: the forward kernels' counts times the
+# mean cost of one operation of their source on a dual number (a sum, or a
+# product by a number: 2 operations; a product of two duals: 3; a quotient:
+# 4), ~2.3
+DUAL_OPS_FACTOR = 2.3
+TANGENT_BUDGET = 1e-9        # (a), (b): of the largest |tangent| of each output
+JVP_PRIMAL_BUDGET = 1e-12    # (a): the tangent kernel's primal against the forward kernel's
+FD_REL_BUDGET = 1e-5         # (c): each component of ∇logp against central differences
+# (c): central-difference steps, relative to |θ_i|: small, for P_lin is
+# interpolated linearly in log k (a kink where an output k crosses a
+# solver node); the rounding of logp (~1e-13) costs ~1e-7 of a component
+FD_STEPS = (1e-5, 3e-5)
+LOGP_GRAD_REL_BUDGET = 1e-12  # (c): logp with the gradient against logp without
+GRAD_BATCHES = (1, 4)        # (e): walkers of the timed values and gradients
+# the seeded tangent direction of (a) and (b), per table field
+TANGENT_SCALES = dict(omega_b=1e-3, omega_cdm=1e-2, h=1e-2, m_ncdm=1e-2, n_ur=1e-2, yhe=1e-2)
+SOLVER_JVP_REPLACES = {
+    "recomb_scan_jvp": "eftpipe_tpu/boltzmann/thermo.py:317 (its derivative: jax.jvp through "
+                       "_thermo_on_grid's lax.scan; no Pallas)",
+    "eb_solve_jvp": "eftpipe_tpu/boltzmann/einstein_boltzmann.py:563 (its derivative: jax.jvp "
+                    "through solve_k's lax.scan; no Pallas)",
+}
+
+
+def seeded_tangents(par, seed: int):
+    """``par`` with a seeded tangent on each table field (inside the
+    caller's ``forward_ad.dual_level()``)."""
+    rng = np.random.default_rng(seed)
+    return par._replace(**{n: forward_ad.make_dual(
+        getattr(par, n).contiguous(),
+        TANGENT_SCALES[n] * torch.as_tensor(rng.standard_normal(par.h.shape[0]),
+                                            dtype=torch.float64, device=par.h.device))
+        for n in eb.TABLE_FIELDS})
+
+
+def primal(t):
+    return forward_ad.unpack_dual(t).primal
+
+
+def grad_check_recomb(nw: int = 4, n_fine: int = 4096) -> dict:
+    """(a): ``recomb_scan_jvp`` against forward AD of ``recomb_scan_plain``:
+    the solver phase's (a) inputs, their tangents those of a seeded
+    direction in the six table fields; the plain loop on the host (its
+    operations, tiny and one after another, take ~3× longer under forward
+    AD on the card)."""
+    par = box_batch(box_draws(nw, seed=11))
+    with forward_ad.dual_level(), DenseTangents():
+        dpar = seeded_tangents(par, 21)
+        bg = thermo.background_tables(dpar, n_grid=n_fine)
+        ins = thermo.recomb_inputs(dpar, bg)
+        dlna = float(primal(bg.lna)[1] - primal(bg.lna)[0])
+        prim = [primal(t).contiguous() for t in ins]
+        tans = [tangent_or_zeros(t).contiguous() for t in ins]
+        (got, dgot), ms = timed(lambda: thermo.recomb_scan_jvp_cuda(prim, tans, dlna), warmup=1)
+        fwd = thermo.recomb_scan_cuda(*prim, dlna)
+        ins = [t.cpu() for t in ins]
+        t0 = time.perf_counter()
+        ref = [forward_ad.unpack_dual(o) for o in thermo.recomb_scan_plain(*ins, dlna)]
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ref = [r._replace(tangent=r.tangent.cuda()) for r in ref]
+    names = ("x_H", "x_e", "T_M")
+    row = dict(W=nw, n=n_fine, directions_per_row=1,
+               tangent_err={k: rel_err(g, r.tangent) for k, g, r in zip(names, dgot, ref)},
+               budget=TANGENT_BUDGET,
+               primal_rel_err=max(float(((g - f).abs() / f.abs()).max()) for g, f in zip(got, fwd)),
+               primal_budget=JVP_PRIMAL_BUDGET, ms=ms, plain_ms=plain_ms,
+               plain="recomb_scan_plain under forward AD (DenseTangents), the inputs "
+                     "copied to the host",
+               max_abs_err=max(float((g - r.tangent).abs().max()) for g, r in zip(dgot, ref)),
+               finite=all(bool(torch.isfinite(r.tangent).all()) for r in ref))
+    row.update(recomb_bound(nw, n_fine, dual=True))
+    return row
+
+
+def grad_check_eb(solver, nw: int = 2, cut: int = 600, nbuckets: int = 1) -> dict:
+    """(b): ``eb_solve_jvp`` against forward AD of ``eb_solve_plain``: the
+    solver phase's (b) cosmologies, the tables' tangent that of a seeded
+    direction in the six table fields; (b)'s schedule shortened, for the
+    plain loop under forward AD takes ~90 ms a lockstep RK4 step on the
+    card and ~35 ms on the host, where it runs: the shortest bucket (47
+    modes, 624 steps) and the longest mode cut to 600 steps (410 in TCA,
+    190 after)."""
+    par = box_batch(box_draws(nw, seed=12))
+    buckets = check_buckets(solver, cut, nbuckets)
+    mcut = buckets[-1][2]
+    sel = torch.as_tensor(np.concatenate([b[0] for b in buckets]), device="cuda")
+    k = solver.k_mpc
+    dsched = eb.kernel_schedule(k, buckets).to("cuda")
+    with forward_ad.dual_level(), DenseTangents():
+        _, _, tab = solver.tables(seeded_tangents(par, 22))
+        ptab = eb.EBTables(lna=primal(tab.lna), dlna=primal(tab.dlna), tau=None,
+                           stacked=primal(tab.stacked))
+        d_stacked = tangent_or_zeros(tab.stacked)
+        (got, dgot), ms = timed(lambda: eb.eb_solve_jvp_cuda(ptab, d_stacked, dsched, len(k)),
+                                warmup=1)
+        fwd = eb.eb_solve_cuda(ptab, dsched, len(k))
+        tab = eb.EBTables(lna=tab.lna.cpu(), dlna=tab.dlna.cpu(), tau=None,
+                          stacked=tab.stacked.cpu())
+        t0 = time.perf_counter()
+        ref = [eb.eb_solve_plain(tab, k[b[0]], b[1], b[2], b[3]) for b in buckets]
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        refs = {n: forward_ad.unpack_dual(torch.cat([getattr(r, n) for r in ref], -1))
+                for n in ("delta_m", "delta_cb", "zeta_ini")}
+        refs = {n: r._replace(tangent=r.tangent.cuda()) for n, r in refs.items()}
+    errs = {n: rel_err(getattr(dgot, n)[..., sel], r.tangent) for n, r in refs.items()}
+    steps = int(eb.kernel_schedule(k, buckets).steps.sum())
+    return dict(W=nw, modes=int(sel.numel()), mode_steps=steps * nw, directions_per_row=1,
+                cut_mode_tca_steps=int(mcut[0, :-1].sum()),
+                cut_mode_post_tca_steps=int((~mcut[0, :-1]).sum()),
+                tangent_err=errs, budget=TANGENT_BUDGET,
+                primal_rel_err={n: rel_err(getattr(got, n), getattr(fwd, n)) for n in refs},
+                ms=ms, plain_ms=plain_ms,
+                plain="eb_solve_plain under forward AD (DenseTangents), the tables "
+                      "copied to the host",
+                max_abs_err=max(float((getattr(dgot, n)[..., sel] - r.tangent).abs().max())
+                                for n, r in refs.items()),
+                finite=all(bool(torch.isfinite(r.tangent).all()) for r in refs.values()))
+
+
+class SolverRecorder:
+    """A provider's solver that keeps the ``LinearPower`` of each call."""
+
+    def __init__(self, solver):
+        self.solver, self.calls = solver, []
+
+    def __call__(self, par):
+        self.calls.append(self.solver(par))
+        return self.calls[-1]
+
+    def __getattr__(self, name):
+        return getattr(self.solver, name)
+
+
+def value_and_grad_fn(an, x):
+    """A callable: ``an.logp`` at ``x`` (W, ndim) and its gradient."""
+    def run():
+        xg = x.clone().requires_grad_()
+        lp = an.logp(xg)
+        (g,) = torch.autograd.grad(lp.sum(), xg)
+        return lp.detach(), g
+    return run
+
+
+def grad_fd_check(an, nw: int = 2) -> tuple[dict, dict, dict]:
+    """(c): ∇logp of the float64 analysis through the kernels against
+    central differences of its own float64 ``logp`` (all the perturbed
+    points in one batch), at ``nw`` seeded points; the solver's outputs and
+    ``logp`` with the gradient against without it.  Returns the line's
+    entries, the solver kernels' launches of the value and gradient, and
+    the ``qf_real`` launches by shape of the path."""
+    theta0 = np.asarray(an.space.theta0(), np.float64)
+    rng = np.random.default_rng(13)
+    thetas = theta0[None] * (1.0 + 1e-2 * rng.standard_normal((nw, theta0.size)))
+    x = torch.as_tensor(thetas, dtype=torch.float64, device="cuda")
+    prov = an.providers["LRG"]
+    rec = prov.solver = SolverRecorder(prov.solver)
+    with torch.no_grad():
+        an.logp(x)  # warm-up: the kernels' layouts on the card
+    torch.cuda.synchronize()
+    bk.reset_launch_counts()
+    qf.reset_launch_counts()
+    (lp, g), vg_ms = timed(value_and_grad_fn(an, x))
+    launches = dict(bk.LAUNCHES) | {"qf_real": qf.LAUNCHES["qf_real"]}
+    by_shape = dict(qf.LAUNCHES_BY_SHAPE)
+    with torch.no_grad():
+        lp0 = an.logp(x)
+    with_grad, without = rec.calls[-2], rec.calls[-1]
+    prov.solver = rec.solver
+    outputs_equal = {f: bool(torch.equal(getattr(with_grad, f).detach(), getattr(without, f)))
+                     for f in eb.LinearPower._fields}
+    logp_rel = float(((lp - lp0).abs() / lp0.abs()).max())
+    # central differences: every point, parameter, step and sign in one batch
+    ndim = theta0.size
+    steps = np.array(FD_STEPS)[:, None, None] * np.abs(thetas)[None]          # (S, W, ndim)
+    shifted = np.repeat(np.repeat(thetas[None, :, None, None, :], len(FD_STEPS), 0), ndim, 2)
+    shifted = np.repeat(shifted, 2, 3)                                       # (S, W, ndim, 2, ndim)
+    for j in range(ndim):
+        shifted[:, :, j, 0, j] += steps[..., j]
+        shifted[:, :, j, 1, j] -= steps[..., j]
+    with torch.no_grad():
+        lps = an.logp(torch.as_tensor(shifted.reshape(-1, ndim), dtype=torch.float64,
+                                      device="cuda")).cpu().numpy().reshape(shifted.shape[:4])
+    fd = (lps[..., 0] - lps[..., 1]) / (2.0 * steps)                           # (S, W, ndim)
+    g_np = g.cpu().numpy()
+    rel = np.abs(fd - g_np[None]) / np.abs(g_np[None])                        # (S, W, ndim)
+    best = rel.min(axis=0)
+    out = dict(W=nw, dtype="float64", params=list(an.space.sampled), theta=thetas.tolist(),
+               logp=lp.cpu().numpy().tolist(), grad=g_np.tolist(),
+               fd_steps_rel=list(FD_STEPS), fd_rel_err_by_step=rel.max(axis=(1, 2)).tolist(),
+               fd_rel_err_by_param=dict(zip(an.space.sampled, best.max(axis=0).tolist())),
+               fd_max_rel_err=float(best.max()), fd_budget=FD_REL_BUDGET,
+               fd_batch=int(lps.size), solver_outputs_equal=outputs_equal,
+               logp_rel_err_with_grad=logp_rel, logp_budget=LOGP_GRAD_REL_BUDGET,
+               value_and_grad_ms=vg_ms, launches=launches,
+               finite=bool(np.isfinite(g_np).all() and np.isfinite(lps).all()))
+    return out, {k: launches[k] for k in bk.LAUNCHES}, by_shape
+
+
+def grad_hmc(an) -> tuple[dict, dict, dict]:
+    """(d): ``run_mcmc(sampler="hmc", init="ball")`` on the float32 analysis
+    through the driver: 2 chains, ``n_leapfrog=1``, ``warmup_steps=1`` (the
+    driver's three warmup windows, one transition each) and 1 step, five
+    values and gradients of ~10 s; every gradient the sampler took is kept
+    (a hook on its input)."""
+    theta0 = np.asarray(an.space.theta0(), np.float64)
+    grads, calls = [], [0]
+    logp = an.logp
+
+    def counted(x, chunk=None):
+        calls[0] += 1
+        if x.requires_grad:
+            x.register_hook(lambda g: grads.append(g.detach().clone()))
+        return logp(x, chunk)
+
+    an.logp = counted
+    bk.reset_launch_counts()
+    qf.reset_launch_counts()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            res = an.run_mcmc(nwalkers=2, out=os.path.join(tmp, "hmc"), max_steps=1, block=1,
+                              rhat_tol=-1.0, key=0, sampler="hmc", init="ball", n_leapfrog=1,
+                              warmup_steps=1, with_derived=False,
+                              inv_mass0=(1e-3 * theta0) ** 2)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        del an.logp
+    launches = dict(bk.LAUNCHES)
+    finite = bool(np.isfinite(res.chain).all() and np.isfinite(res.logps).all()
+                  and grads and all(bool(torch.isfinite(g).all()) for g in grads))
+    out = dict(nchains=2, n_leapfrog=1, warmup_steps=1, steps=1, dtype="float32",
+               chain_shape=list(res.chain.shape), accept_rate=res.accept_rate,
+               logp_calls=calls[0], gradients=len(grads), finite=finite, seconds=seconds,
+               launches=launches | {"qf_real": qf.LAUNCHES["qf_real"]})
+    return out, launches, dict(qf.LAUNCHES_BY_SHAPE)
+
+
+def grad_times(an, solver) -> tuple[dict, dict, dict]:
+    """(e): seconds per value and gradient of the float64 analysis at W = 1
+    and 4 against seconds per ``logp``; at W=4 the tangent kernels alone on
+    the rows of its tangent pass (W·P, P the differentiated table fields, as
+    ``EBSolver.table_tangents`` seeds them), beside the forward kernels on
+    the same rows, and their bounds."""
+    theta0 = np.asarray(an.space.theta0(), np.float64)
+    prov = an.providers["LRG"]
+    bk.reset_launch_counts()
+    qf.reset_launch_counts()
+    times = {}
+    for nw in GRAD_BATCHES:
+        rng = np.random.default_rng(200 + nw)
+        x = torch.as_tensor(theta0[None] * (1.0 + 1e-2 * rng.standard_normal((nw, theta0.size))),
+                            dtype=torch.float64, device="cuda")
+        with torch.no_grad():
+            _, logp_ms = timed(lambda: an.logp(x))
+        _, vg_ms = timed(value_and_grad_fn(an, x))
+        times[nw] = dict(logp_ms=logp_ms, value_and_grad_ms=vg_ms, ratio=vg_ms / logp_ms)
+    par = thermo.as_batch(prov._params(an.params_dict(x)))
+    names = tuple(n for n in eb.TABLE_FIELDS if n in an.space.sampled)
+    with forward_ad.dual_level(), DenseTangents():
+        dpar = eb.tangent_rows(par, names)
+        f_bg = thermo.background_tables(dpar, n_grid=thermo.N_FINE)
+        ins = thermo.recomb_inputs(dpar, f_bg)
+        prim = [primal(t).contiguous() for t in ins]
+        tans = [tangent_or_zeros(t).contiguous() for t in ins]
+        _, _, tab = solver.tables(dpar)
+        ptab = eb.EBTables(lna=primal(tab.lna), dlna=primal(tab.dlna), tau=None,
+                           stacked=primal(tab.stacked))
+        d_stacked = tangent_or_zeros(tab.stacked)
+    dlna = float(f_bg.lna[1] - f_bg.lna[0])
+    _, recomb_jvp_ms = timed(lambda: thermo.recomb_scan_jvp_cuda(prim, tans, dlna))
+    _, recomb_ms = timed(lambda: thermo.recomb_scan_cuda(*prim, dlna))
+    dsched = solver.device_schedule("cuda")
+    nk, nz = solver.k_mpc.size, solver.lna_out.size
+    _, eb_jvp_ms = timed(lambda: eb.eb_solve_jvp_cuda(ptab, d_stacked, dsched, nk))
+    _, eb_ms = timed(lambda: eb.eb_solve_cuda(ptab, dsched, nk))
+    sched = solver.schedule()
+    rows = nw * len(names)
+    times[nw].update(
+        rows=rows, fields=list(names), eb_solve_jvp_ms=eb_jvp_ms, eb_solve_ms_same_rows=eb_ms,
+        recomb_scan_jvp_ms=recomb_jvp_ms, recomb_scan_ms_same_rows=recomb_ms,
+        eb_solve_jvp=eb_bound(int(sched.steps.sum()) * rows, int(sched.steps.max()),
+                              eb_bytes(ptab, dsched, nz, nk, dual=True), dual=True),
+        recomb_scan_jvp=recomb_bound(rows, thermo.N_FINE, dual=True))
+    return times, dict(bk.LAUNCHES), dict(qf.LAUNCHES_BY_SHAPE)
+
+
+def grad_laplace(an) -> tuple[dict, dict, dict]:
+    """(f): ``laplace_cov()`` on the card raises the solver's A8.2 error,
+    its message unchanged (its forward, values and tangents, runs first)."""
+    bk.reset_launch_counts()
+    qf.reset_launch_counts()
+    try:
+        an.laplace_cov()
+        raised, message = None, None
+    except NotImplementedError as e:
+        raised, message = type(e).__name__, str(e)
+    return (dict(raised=raised, message_unchanged=message == eb.A82,
+                 names_a8_2="A8.2" in (message or "")),
+            dict(bk.LAUNCHES), dict(qf.LAUNCHES_BY_SHAPE))
+
+
+def solver_grad_phase(solver, lines: list) -> dict:
+    """Phase 10b: the solver's gradient on the card (``solver_grad`` line).
+    ``solver``: the solver phase's 4-D recipe solver, for (b).  Returns the
+    solver kernels' launches by path, the ``qf_real`` launches by shape of
+    the paths, and the line."""
+    t_phase = time.perf_counter()
+    out, by_path, qf_paths = {}, {}, {}
+    out["recomb_check"] = grad_check_recomb()
+    out["eb_check"] = grad_check_eb(solver)
+    info = solver_analysis_config(os.path.join(WORKDIR, "solver"))  # data: the solver phase's
+    an64 = Analysis.from_config(info, dtype=torch.float64, device="cuda")
+    an32 = Analysis.from_config(info, dtype=torch.float32, device="cuda")
+    out["fd"], by_path["solver_grad"], qf_paths["solver_grad"] = grad_fd_check(an64)
+    out["hmc"], by_path["solver_hmc"], qf_paths["solver_hmc"] = grad_hmc(an32)
+    out["times"], by_path["solver_grad_times"], qf_paths["solver_grad_times"] = grad_times(
+        an64, an64.providers["LRG"].solver)
+    out["laplace"], by_path["solver_laplace"], qf_paths["solver_laplace"] = grad_laplace(an32)
+    out["nvidia_smi"] = nvidia_smi_line()
+    out["seconds"] = time.perf_counter() - t_phase
+    lines.append(emit("solver_grad", **out))
+    failed = []
+    for key in ("recomb_check", "eb_check"):
+        c = out[key]
+        if not (c["finite"] and all(v <= c["budget"] for v in c["tangent_err"].values())):
+            failed.append(f"{key} tangents {c['tangent_err']}")
+    if not out["recomb_check"]["primal_rel_err"] <= JVP_PRIMAL_BUDGET:
+        failed.append(f"recomb_scan_jvp primal {out['recomb_check']['primal_rel_err']}")
+    fd = out["fd"]
+    if not (fd["finite"] and fd["fd_max_rel_err"] <= FD_REL_BUDGET):
+        failed.append(f"central differences {fd['fd_rel_err_by_param']}")
+    if not (all(fd["solver_outputs_equal"].values())
+            and fd["logp_rel_err_with_grad"] <= LOGP_GRAD_REL_BUDGET):
+        failed.append(f"with/without the gradient {fd['solver_outputs_equal']} "
+                      f"{fd['logp_rel_err_with_grad']}")
+    la = fd["launches"]
+    if not (la["eb_solve_jvp"] == 1 and la["recomb_scan_jvp"] == 1 and la["eb_solve"] > 0
+            and la["recomb_scan"] > 0 and la["qf_real"] > 0):
+        failed.append(f"launches of one value and gradient {la}")
+    if not out["hmc"]["finite"]:
+        failed.append(f"hmc {out['hmc']}")
+    if not (out["laplace"]["raised"] == "NotImplementedError"
+            and out["laplace"]["message_unchanged"]):
+        failed.append(f"laplace {out['laplace']}")
+    if failed:
+        raise SystemExit(f"chip_smoke: solver_grad: failed {failed}")
+    return dict(by_path=by_path, qf_paths=qf_paths, out=out)
 
 
 # ---------------------------------------------------------------------------
@@ -1908,7 +2309,9 @@ def training_phase(lines: list) -> dict:
             failed.append(f"(b) {name} {p}")
     if not all(v <= TRAIN_PROVIDER_REL_BUDGET for v in out["provider"].values()):
         failed.append(f"(d) {out['provider']}")
-    if launches != {"eb_solve": r["n"] // r["batch"], "recomb_scan": r["n"] // r["batch"]}:
+    calls = r["n"] // r["batch"]  # and no tangent kernel: the solves take no gradient
+    if launches != {"eb_solve": calls, "recomb_scan": calls, "eb_solve_jvp": 0,
+                    "recomb_scan_jvp": 0}:
         failed.append(f"(e) launches {launches}")
     if failed:
         raise SystemExit(f"chip_smoke: training: failed {failed}")
@@ -2151,12 +2554,18 @@ def main() -> None:
     by_path.update(analysis_phase(lines))
     solver = solver_phase(lines, args.out)
     by_path["solver_analysis"] = solver["qf_shapes"]
+    grad = solver_grad_phase(solver.pop("solver"), lines)
+    by_path.update(grad["qf_paths"])
+    solver["by_path"].update(grad["by_path"])
     solver["by_path"]["training"] = training_phase(lines)
     transfer_training_phase(lines)
-    # the float32 kernels at the shapes the solver's analysis and the mesh
-    # path gave them
+    # the quadratic-form kernels at the shapes the solver's analyses (their
+    # values and gradients) and the mesh path gave them
     checked = {(r["kernel"], r["dtype"], r["W"], r["N"], r["S"], r["BL"]) for r in rows}
-    for key in sorted((set(solver["qf_shapes"]) | set(by_path["mesh"])) - checked):
+    launched = set(solver["qf_shapes"]) | set(by_path["mesh"])
+    for shapes in grad["qf_paths"].values():
+        launched |= set(shapes)
+    for key in sorted(launched - checked):
         kernel, suffix, nw, n, s_, bl = key
         rows.append(check_kernel(kernel, f32 if suffix == "f32" else f64, nw, n, s_, bl,
                                  gen=gen, n_timed=n_timed))
@@ -2182,7 +2591,7 @@ def main() -> None:
             if not any(r["name"].startswith(f"{kernel}[{suffix},") for r in out_rows):
                 raise SystemExit(f"chip_smoke: kernel {kernel} ({suffix}) was not launched "
                                  f"on any path")
-    solver["rows"] = solver_rows(solver["out"], solver["by_path"])
+    solver["rows"] = solver_rows(solver["out"], grad["out"], solver["by_path"])
     for row in solver["rows"]:
         if row["launches"] <= 0:
             raise SystemExit(f"chip_smoke: kernel {row['name']} was not launched on any path")

@@ -1,5 +1,6 @@
 """Loader, checks and launch counters of the solver's CUDA kernels
-(``csrc/boltzmann.cu``: ``recomb_scan`` and ``eb_solve``).
+(``csrc/boltzmann.cu``: ``recomb_scan`` and ``eb_solve``, and their tangent
+kernels ``recomb_scan_jvp`` and ``eb_solve_jvp``).
 
 The library is built by :mod:`eftpipe_tpu_torch.ops._build` at the first
 launch, never at import.  Each C function takes its tensors' pointers, then
@@ -16,7 +17,7 @@ import torch
 
 from ..ops import _build
 
-LAUNCHES = {"eb_solve": 0, "recomb_scan": 0}
+LAUNCHES = {"eb_solve": 0, "recomb_scan": 0, "eb_solve_jvp": 0, "recomb_scan_jvp": 0}
 _FUNCS: dict[str, object] = {}
 
 
@@ -51,13 +52,13 @@ def check(name, t, shape, like) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def no_grad_check(kernel: str, tensors) -> None:
-    """The kernels have no backward: a CUDA input that requires grad raises."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{kernel}: no gradient through the CUDA kernel yet (ROADMAP A8.1, the "
-            f"solver's gradient on the card); run the solver under torch.no_grad(), "
-            f"or on the CPU for its plain, differentiable version")
+def no_backward(kernel: str) -> NotImplementedError:
+    """The error of a reverse-mode pass through a kernel: each has a tangent
+    kernel (forward mode) and no backward of its own."""
+    return NotImplementedError(
+        f"{kernel}: no reverse mode through the CUDA kernel, only forward mode (its "
+        f"tangent kernel); take the gradient through EBSolver, whose backward contracts "
+        f"the solve's tangents in the differentiated parameters")
 
 
 def launch(kernel: str, device, *tensors, ints=(), doubles=()) -> None:

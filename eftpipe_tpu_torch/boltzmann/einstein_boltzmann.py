@@ -21,9 +21,17 @@ Differences from the JAX module:
   mode's unpadded schedule in one launch per solve; on a CPU tensor
   :func:`eb_solve_plain`, a step loop batched over (cosmology, mode) on the
   lockstep-padded schedule (padded steps are exact no-ops: dlna = 0, TCA
-  off).  Neither the kernel nor ``recomb_scan`` has a backward: on a CUDA
-  tensor that requires grad they raise (ROADMAP A8.1); the plain versions
-  are differentiable by autograd;
+  off).  The plain versions are differentiable by autograd, twice;
+* the gradient on the card is forward-mode.  Neither kernel has a reverse
+  mode; each has a tangent kernel for ``torch.autograd.forward_ad``
+  (``eb_solve_jvp``, ``recomb_scan_jvp``).  When the solver's parameters
+  are on the card and require grad, :class:`EBSolver` runs the part of the
+  solve that depends on the tables as one ``torch.autograd.Function``
+  (``_SolverTables``): the primal with the forward kernels, then one pass
+  under forward AD on W·P rows (row (w, p) seeded with the p-th of the P
+  differentiated fields among ω_b, ω_cdm, h, m_ncdm, N_ur and Y_He), whose
+  tangents are the Jacobian that its backward contracts.  A second
+  derivative through it (``create_graph=True``) raises (ROADMAP A8.2);
 * always float64; :class:`SolverProvider` casts its outputs to the dtype
   of the parameters it is given.
 
@@ -39,9 +47,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 from .. import resolve_device
 from . import _kernels
+from .dual import DenseTangents, tangent_or_zeros
 from .thermo import (
     CosmoParams, Background, Thermo, as_batch, background_tables, thermo_tables,
     gradient, interp, _const, _h0_mpc, F64,
@@ -639,44 +649,101 @@ def kernel_schedule(k_mpc, buckets) -> KernelSchedule:
     )
 
 
-def eb_solve_cuda(tab: EBTables, dsched: dict, nk: int) -> PerturbOut:
-    """Launch ``eb_solve``: one thread per (cosmology, mode), one launch for
-    every mode of the schedule ``dsched`` (:meth:`KernelSchedule.to`);
-    outputs in the k grid's order (nk modes)."""
+def _check_eb(tab: EBTables, dsched: dict):
     st = tab.stacked
     nw, nrows, ng = st.shape
     if nrows != N_ROWS:
         raise ValueError(f"eb_solve_cuda: stacked tables have {nrows} rows, expected {N_ROWS}")
-    dev = st.device
-    if dsched["lna"].device != dev:
-        raise ValueError(f"eb_solve_cuda: schedule on {dsched['lna'].device}, tables on {dev}")
-    table = st.transpose(1, 2).contiguous()  # (W, n, 14): one point's rows together
+    if dsched["lna"].device != st.device:
+        raise ValueError(f"eb_solve_cuda: schedule on {dsched['lna'].device}, "
+                         f"tables on {st.device}")
+    return nw, ng
+
+
+def _eb_outputs(out, nw: int, nz: int, nk: int) -> PerturbOut:
+    return PerturbOut(delta_m=out[: nw * nz * nk].view(nw, nz, nk),
+                      delta_cb=out[nw * nz * nk: 2 * nw * nz * nk].view(nw, nz, nk),
+                      zeta_ini=out[2 * nw * nz * nk:].view(nw, nk))
+
+
+def _eb_args(tab: EBTables, dsched: dict) -> list:
+    d = dsched
+    return [tab.lna[0:1].contiguous(), tab.dlna.reshape(1).contiguous(), d["k"], d["order"],
+            d["offsets"], d["lna"], d["tca"], d["out_idx"], d["quad"]]
+
+
+def eb_solve_cuda(tab: EBTables, dsched: dict, nk: int) -> PerturbOut:
+    """Launch ``eb_solve``: one thread per (cosmology, mode), one launch for
+    every mode of the schedule ``dsched`` (:meth:`KernelSchedule.to`);
+    outputs in the k grid's order (nk modes)."""
+    nw, ng = _check_eb(tab, dsched)
+    dev = tab.stacked.device
+    table = tab.stacked.transpose(1, 2).contiguous()  # (W, n, 14): one point's rows together
     nm, nz = dsched["out_idx"].shape
     out = torch.zeros((2 * nw * nz * nk + nw * nk,), dtype=F64, device=dev)
-    lna0 = tab.lna[0:1].contiguous()
-    dlna = tab.dlna.reshape(1).contiguous()
-    d = dsched
-    _kernels.launch("eb_solve", dev, table, lna0, dlna, d["k"], d["order"], d["offsets"],
-                    d["lna"], d["tca"], d["out_idx"], d["quad"], out,
+    _kernels.launch("eb_solve", dev, table, *_eb_args(tab, dsched), out,
                     ints=(nw, nm, nk, nz, ng))
-    dm = out[: nw * nz * nk].view(nw, nz, nk)
-    dcb = out[nw * nz * nk: 2 * nw * nz * nk].view(nw, nz, nk)
-    zeta = out[2 * nw * nz * nk:].view(nw, nk)
-    return PerturbOut(delta_m=dm, delta_cb=dcb, zeta_ini=zeta)
+    return _eb_outputs(out, nw, nz, nk)
+
+
+def eb_solve_jvp_cuda(tab: EBTables, d_stacked, dsched: dict, nk: int):
+    """Launch ``eb_solve_jvp``: the solve and its tangent, one direction a
+    cosmology, ``d_stacked`` the tangent of ``tab.stacked`` (the schedule
+    and the grid carry none).  Returns (the outputs, their tangents), each a
+    :class:`PerturbOut`."""
+    nw, ng = _check_eb(tab, dsched)
+    _kernels.check("tangent of the tables", d_stacked, tab.stacked.shape, tab.stacked)
+    dev = tab.stacked.device
+    table = tab.stacked.transpose(1, 2).contiguous()
+    dtable = d_stacked.transpose(1, 2).contiguous()
+    nm, nz = dsched["out_idx"].shape
+    out = torch.zeros((2 * nw * nz * nk + nw * nk,), dtype=F64, device=dev)
+    dout = torch.zeros_like(out)  # (a base of its own: a tangent has its primal's layout)
+    _kernels.launch("eb_solve_jvp", dev, table, dtable, *_eb_args(tab, dsched), out, dout,
+                    ints=(nw, nm, nk, nz, ng))
+    return _eb_outputs(out, nw, nz, nk), _eb_outputs(dout, nw, nz, nk)
+
+
+class _EBSolve(torch.autograd.Function):
+    """``eb_solve`` on the card: the forward kernel, and for forward AD
+    (``jvp``) the tangent kernel in the tables' tangent.  No reverse mode:
+    :class:`EBSolver` takes the gradient on the card by forward mode."""
+
+    @staticmethod
+    def forward(stacked, lna, dlna, dsched, nk):
+        return tuple(eb_solve_cuda(EBTables(lna, dlna, None, stacked), dsched, nk))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        stacked, lna, dlna, dsched, nk = inputs
+        ctx.save_for_forward(stacked, lna, dlna)
+        ctx.dsched, ctx.nk = dsched, nk
+
+    @staticmethod
+    def jvp(ctx, d_stacked, *_):
+        stacked, lna, dlna = ctx.saved_tensors
+        d_stacked = torch.zeros_like(stacked) if d_stacked is None else d_stacked
+        _, tangents = eb_solve_jvp_cuda(EBTables(lna, dlna, None, stacked), d_stacked,
+                                        ctx.dsched, ctx.nk)
+        return tuple(tangents)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise _kernels.no_backward("eb_solve")
 
 
 def eb_solve(tab: EBTables, k_mpc, buckets, dsched: dict | None = None) -> PerturbOut:
     """All modes of ``buckets`` for every cosmology of ``tab``: the CUDA
     kernel on a CUDA tensor (``dsched``: the flattened schedule on the
-    device, made now when None), the plain step loop per bucket on a CPU
-    tensor.  Outputs (W, nz, nk) and (W, nk) in the order of ``k_mpc``."""
+    device, made now when None; forward AD through the tangent kernel, no
+    reverse mode), the plain step loop per bucket on a CPU tensor.  Outputs
+    (W, nz, nk) and (W, nk) in the order of ``k_mpc``."""
     st = tab.stacked
     nk = len(k_mpc)
     if st.is_cuda:
-        _kernels.no_grad_check("eb_solve", [st, tab.lna, tab.dlna])
         if dsched is None:
             dsched = kernel_schedule(k_mpc, buckets).to(st.device)
-        return eb_solve_cuda(tab, dsched, nk)
+        return PerturbOut(*_EBSolve.apply(st, tab.lna, tab.dlna, dsched, nk))
     nw = st.shape[0]
     nz = buckets[0][3].shape[0]
     dm = torch.zeros((nw, nz, nk), dtype=F64, device=st.device)
@@ -866,18 +933,45 @@ class EBSolver:
         th = thermo_tables(par, bg)
         return bg, th, make_tables(par, bg, th)
 
-    def __call__(self, par: CosmoParams) -> LinearPower:
-        par = as_batch(par, self.device)
+    def table_part(self, par: CosmoParams) -> tuple:
+        """The part of a solve that depends on the tables: δ_m and δ_cb (W,
+        nz, nk), ζ_ini (W, nk), ℋ and τ at the output times (W, nz_out), τ0
+        and r_drag (W,).  The rest of :meth:`__call__` is plain torch on
+        these and on h, ln10As and n_s."""
         bg, th, tab = self.tables(par)
         dev = tab.stacked.device
         out = eb_solve(tab, self.k_mpc, self.buckets,
                        self.device_schedule(dev) if dev.type == "cuda" else None)
-        k = _const(self.k_mpc, tab.stacked)
+        lna_out = torch.log(1.0 / (1.0 + _const(self.z_out, tab.stacked)))
+        return (out.delta_m, out.delta_cb, out.zeta_ini, interp(lna_out, bg.lna, bg.conf_h),
+                interp(lna_out, bg.lna, bg.tau), bg.tau0, th.rs_drag)
+
+    def table_tangents(self, par: CosmoParams, names) -> list:
+        """The Jacobian of :meth:`table_part` in the fields ``names`` (P of
+        ``TABLE_FIELDS``): one pass under forward AD on the W·P rows of
+        :func:`tangent_rows` (on the card: one launch of each tangent
+        kernel).  One (W, P, ...) tensor an output."""
+        nw, p = par.h.shape[0], len(names)
+        with forward_ad.dual_level(), DenseTangents():
+            out = self.table_part(tangent_rows(par, names))
+            return [tangent_or_zeros(o).reshape(nw, p, *o.shape[1:]) for o in out]
+
+    def __call__(self, par: CosmoParams) -> LinearPower:
+        par = as_batch(par, self.device)
+        if _tangent_route(par):
+            names = tuple(n for n in TABLE_FIELDS if getattr(par, n).requires_grad)
+            fixed = par._replace(**{n: getattr(par, n).detach() for n in TABLE_FIELDS})
+            parts = _SolverTables.apply(self, fixed, self.table_tangents(fixed, names), names,
+                                        *(getattr(par, n) for n in names))
+        else:
+            parts = self.table_part(par)
+        delta_m, delta_cb, zeta_ini, conf_h, tau_out, tau0, rs_drag = parts
+        k = _const(self.k_mpc, delta_m)
         col = lambda v: v[:, None]
         as_ = 1e-10 * torch.exp(col(par.ln10As))
         pzeta = 2.0 * math.pi**2 / k**3 * as_ * (k / 0.05) ** (col(par.ns) - 1.0)  # (W, nk)
-        t2 = (out.delta_m / out.zeta_ini[:, None, :]) ** 2
-        t2cb = (out.delta_cb / out.zeta_ini[:, None, :]) ** 2
+        t2 = (delta_m / zeta_ini[:, None, :]) ** 2
+        t2cb = (delta_cb / zeta_ini[:, None, :]) ** 2
         pk_all = pzeta[:, None, :] * t2          # (W, n_lna, nk), Mpc³
         pkcb_all = pzeta[:, None, :] * t2cb
 
@@ -902,14 +996,65 @@ class EBSolver:
 
         z_t = _const(self.z_out, k)
         a_out = 1.0 / (1.0 + z_t)
-        lna_out = torch.log(a_out)
-        conf_h = interp(lna_out, bg.lna, bg.conf_h)
         h0 = col(_h0_mpc(par.h))
         h_of_z = conf_h / a_out / h0
-        chi = col(bg.tau0) - interp(lna_out, bg.lna, bg.tau)
+        chi = col(tau0) - tau_out
         da = a_out * chi * h0
         return LinearPower(k_mpc=k, pk=pk, pk_cb=pkcb, z=z_t, sigma8=s8, f=f,
-                           fsigma8=f * s8, h_of_z=h_of_z, da_of_z=da, rs_drag=th.rs_drag)
+                           fsigma8=f * s8, h_of_z=h_of_z, da_of_z=da, rs_drag=rs_drag)
+
+
+# the fields of CosmoParams the tables depend on (ln10As and n_s enter after
+# the solve, in plain torch)
+TABLE_FIELDS = ("omega_b", "omega_cdm", "h", "m_ncdm", "n_ur", "yhe")
+A82 = ("EBSolver: no second derivative through the solver's CUDA kernels yet (ROADMAP "
+       "A8.2). Its gradient on the card is forward-mode, one tangent a parameter, and a "
+       "double backward (create_graph=True: Analysis.laplace_cov, run_mcmc(init=\"laplace\")) "
+       "needs second-order tangents through them. Use init=\"ball\", or the CPU, whose plain "
+       "solver differentiates twice")
+
+
+def tangent_rows(par: CosmoParams, names) -> CosmoParams:
+    """``par``'s W cosmologies as W·P rows, row w·P + p cosmology w with the
+    tangent 1 on its field ``names[p]`` (inside the caller's
+    ``forward_ad.dual_level()``)."""
+    nw, p = par.h.shape[0], len(names)
+    eye = torch.eye(p, dtype=F64, device=par.h.device).repeat(nw, 1)  # row w·P + i: e_i
+    vals = {n: getattr(par, n).detach().repeat_interleave(p) for n in CosmoParams._fields[:-1]}
+    for i, n in enumerate(names):
+        vals[n] = forward_ad.make_dual(vals[n], eye[:, i].contiguous())
+    return CosmoParams(**vals, deg_ncdm=par.deg_ncdm)
+
+
+def _tangent_route(par: CosmoParams) -> bool:
+    """Whether :class:`EBSolver` takes its gradient through
+    :class:`_SolverTables`: the tables on the card, and a table field that
+    requires grad under grad mode."""
+    return (par.h.is_cuda and torch.is_grad_enabled()
+            and any(getattr(par, n).requires_grad for n in TABLE_FIELDS))
+
+
+class _SolverTables(torch.autograd.Function):
+    """:meth:`EBSolver.table_part` with a backward by forward mode: its
+    forward runs the primal as a call without a gradient does (the same
+    numbers, bit for bit) and keeps ``jac``, the tangents of
+    :meth:`EBSolver.table_tangents` in the differentiated fields (made
+    outside: torch runs a Function's forward with forward AD off); its
+    backward contracts the incoming gradients with them.  No double
+    backward (``A82``)."""
+
+    @staticmethod
+    def forward(ctx, solver, par, jac, names, *fields):
+        ctx.save_for_backward(*jac)
+        return solver.table_part(par._replace(**dict(zip(names, fields))))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(A82)
+        g = sum((jac * grad.unsqueeze(1)).reshape(*jac.shape[:2], -1).sum(-1)
+                for jac, grad in zip(ctx.saved_tensors, grads))  # (W, P)
+        return (None, None, None, None, *g.unbind(1))
 
 
 def stack_params(pars, device=None) -> CosmoParams:

@@ -20,7 +20,10 @@ Differences from the JAX module:
   ``csrc/boltzmann.cu`` on a CUDA tensor, the plain step loop
   :func:`recomb_scan_plain` on a CPU tensor.  Its carry-free inputs (the
   Saha fractions, of a 30-step fixed point each) are computed for the whole
-  grid before it.
+  grid before it.  On the card it differentiates in forward mode only
+  (``torch.autograd.forward_ad``: the tangent kernel ``recomb_scan_jvp``);
+  the tables carry forward-mode tangents end to end, which is how
+  ``einstein_boltzmann.EBSolver`` takes the solver's gradient there.
 """
 
 from __future__ import annotations
@@ -407,27 +410,72 @@ def recomb_scan_plain(tg, nh, hs, x_saha, he_term, f_he, dlna: float):
     return torch.stack(xh, -1), torch.stack(xe, -1), torch.stack(tm, -1)
 
 
-def recomb_scan_cuda(tg, nh, hs, x_saha, he_term, f_he, dlna: float):
-    """Launch ``recomb_scan`` (one thread per cosmology walks the grid)."""
+def _check_recomb(tg, nh, hs, x_saha, he_term, f_he):
     nw, n = tg.shape
     for name, t in (("nh", nh), ("hs", hs), ("x_saha", x_saha), ("he_term", he_term)):
         _kernels.check(name, t, (nw, n), tg)
     _kernels.check("f_he", f_he, (nw,), tg)
+    return nw, n
+
+
+def recomb_scan_cuda(tg, nh, hs, x_saha, he_term, f_he, dlna: float):
+    """Launch ``recomb_scan`` (one thread per cosmology walks the grid)."""
+    nw, n = _check_recomb(tg, nh, hs, x_saha, he_term, f_he)
     out = torch.empty((3, nw, n), dtype=F64, device=tg.device)
     _kernels.launch("recomb_scan", tg.device, tg, nh, hs, x_saha, he_term, f_he, out,
                     ints=(nw, n), doubles=(float(dlna),))
     return out[0], out[1], out[2]
 
 
+def recomb_scan_jvp_cuda(inputs, tangents, dlna: float):
+    """Launch ``recomb_scan_jvp``: the recurrence and its tangent, one
+    direction a cosmology.  ``inputs`` and ``tangents``: the six arguments
+    of :func:`recomb_scan_cuda` and a tangent of each, of its shape.
+    Returns ((x_H, x_e, T_M), their tangents)."""
+    nw, n = _check_recomb(*inputs)
+    for name, t, like in zip(("tg", "nh", "hs", "x_saha", "he_term", "f_he"), tangents, inputs):
+        _kernels.check(f"tangent of {name}", t, like.shape, like)
+    out = torch.empty((3, nw, n), dtype=F64, device=inputs[0].device)
+    dout = torch.empty_like(out)  # (a base of its own: a tangent has its primal's layout)
+    _kernels.launch("recomb_scan_jvp", inputs[0].device, *inputs, *tangents, out, dout,
+                    ints=(nw, n), doubles=(float(dlna),))
+    return (out[0], out[1], out[2]), (dout[0], dout[1], dout[2])
+
+
+class _RecombScan(torch.autograd.Function):
+    """``recomb_scan`` on the card: the forward kernel, and for forward AD
+    (``jvp``) the tangent kernel.  No reverse mode: the solver's gradient on
+    the card is forward-mode (``einstein_boltzmann.EBSolver``)."""
+
+    @staticmethod
+    def forward(tg, nh, hs, x_saha, he_term, f_he, dlna):
+        return recomb_scan_cuda(tg, nh, hs, x_saha, he_term, f_he, dlna)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs[:6])
+        ctx.dlna = inputs[6]
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        ins = ctx.saved_tensors
+        tans = [torch.zeros_like(x) if d is None else d.contiguous()
+                for x, d in zip(ins, tangents[:6])]
+        return recomb_scan_jvp_cuda(ins, tans, ctx.dlna)[1]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise _kernels.no_backward("recomb_scan")
+
+
 def recomb_scan(tg, nh, hs, x_saha, he_term, f_he, dlna: float):
-    """The Peebles/T_M recurrence: the CUDA kernel on a CUDA tensor, the
-    plain step loop on a CPU tensor.  No gradient through the kernel (ROADMAP
-    A8.1)."""
+    """The Peebles/T_M recurrence: the CUDA kernel on a CUDA tensor (forward
+    AD through its tangent kernel, no reverse mode), the plain step loop on
+    a CPU tensor."""
     if not tg.is_cuda:
         return recomb_scan_plain(tg, nh, hs, x_saha, he_term, f_he, dlna)
     args = [t.contiguous() for t in (tg, nh, hs, x_saha, he_term, f_he)]
-    _kernels.no_grad_check("recomb_scan", args)
-    return recomb_scan_cuda(*args, dlna)
+    return _RecombScan.apply(*args, float(dlna))
 
 
 def recomb_inputs(par: CosmoParams, bg: Background):

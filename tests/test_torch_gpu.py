@@ -89,8 +89,8 @@ def test_recomb_scan_matches_plain_on_card(cuda):
     """``recomb_scan`` (one thread per cosmology walks the Peebles/T_M
     recurrence) against its plain step loop on the same card inputs: three
     cosmologies on a 1024-point grid, relative error ≤ 1e-10 (FMA contraction
-    and the card's pow/exp, ~1 ulp an operation); one launch; an input that
-    requires grad is refused (ROADMAP A8.1)."""
+    and the card's pow/exp, ~1 ulp an operation); one launch; a backward
+    through the kernel raises (it differentiates in forward mode only)."""
     from eftpipe_tpu_torch.boltzmann import _kernels, thermo
 
     par = thermo.CosmoParams(
@@ -107,8 +107,59 @@ def test_recomb_scan_matches_plain_on_card(cuda):
     ref = thermo.recomb_scan_plain(*ins, dlna)
     for g, r in zip(got, ref):
         assert float(((g - r).abs() / r.abs()).max()) <= 1e-10
-    with pytest.raises(NotImplementedError, match="A8.1"):
-        thermo.recomb_scan(ins[0].clone().requires_grad_(), *ins[1:], dlna)
+    x_h, _, _ = thermo.recomb_scan(ins[0].clone().requires_grad_(), *ins[1:], dlna)
+    with pytest.raises(NotImplementedError, match="no reverse mode"):
+        x_h.sum().backward()
+
+
+def seeded_dual(par, rng):
+    """``par`` (float64 (W,) fields) with a seeded tangent on each of the six
+    table fields, inside the caller's ``forward_ad.dual_level()``."""
+    from torch.autograd import forward_ad
+    from eftpipe_tpu_torch.boltzmann import einstein_boltzmann as eb
+
+    scale = dict(omega_b=1e-3, omega_cdm=1e-2, h=1e-2, m_ncdm=1e-2, n_ur=1e-2, yhe=1e-2)
+    return par._replace(**{n: forward_ad.make_dual(
+        getattr(par, n).contiguous(),
+        scale[n] * torch.as_tensor(rng.standard_normal(par.h.shape[0]), dtype=torch.float64,
+                                   device=par.h.device)) for n in eb.TABLE_FIELDS})
+
+
+def rel_tangent_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.gpu
+def test_recomb_scan_jvp_matches_plain_on_card(cuda):
+    """``recomb_scan_jvp`` (the tangent kernel, through ``recomb_scan``
+    under forward AD) against forward AD of the plain step loop, three
+    cosmologies on a 512-point grid, a seeded tangent in the six table
+    fields: tangents within 1e-9 of their largest |value|; one launch of
+    each kernel (the forward kernel gives the primal)."""
+    from torch.autograd import forward_ad
+    from eftpipe_tpu_torch.boltzmann import _kernels, thermo
+    from eftpipe_tpu_torch.boltzmann.dual import DenseTangents
+
+    par = thermo.as_batch(thermo.CosmoParams(
+        omega_b=torch.tensor([0.0224, 0.020, 0.027], dtype=torch.float64, device=cuda),
+        omega_cdm=torch.tensor([0.12, 0.08, 0.25], dtype=torch.float64, device=cuda),
+        h=torch.tensor([0.68, 0.6, 0.8], dtype=torch.float64, device=cuda),
+        ln10As=3.044, ns=0.9649, m_ncdm=0.02, n_ur=0.00641, deg_ncdm=3.0))
+    with forward_ad.dual_level(), DenseTangents():
+        dpar = seeded_dual(par, np.random.default_rng(4))
+        bg = thermo.background_tables(dpar, n_grid=512)
+        ins = thermo.recomb_inputs(dpar, bg)
+        dlna = float(forward_ad.unpack_dual(bg.lna).primal[1]
+                     - forward_ad.unpack_dual(bg.lna).primal[0])
+        _kernels.reset_launch_counts()
+        got = [forward_ad.unpack_dual(o) for o in thermo.recomb_scan(*ins, dlna)]
+        assert _kernels.LAUNCHES == dict(eb_solve=0, recomb_scan=1, eb_solve_jvp=0,
+                                         recomb_scan_jvp=1)
+        ref = [forward_ad.unpack_dual(o) for o in thermo.recomb_scan_plain(*ins, dlna)]
+    for g, r in zip(got, ref):
+        assert torch.isfinite(r.tangent).all() and float(r.tangent.abs().max()) > 0
+        assert rel_tangent_err(g.tangent, r.tangent) <= 1e-9
+        assert float(((g.primal - r.primal).abs() / r.primal.abs()).max()) <= 1e-10
 
 
 @pytest.mark.gpu
@@ -146,6 +197,126 @@ def test_eb_solve_matches_plain_on_card(cuda):
         r = torch.cat([getattr(o, name) for o in ref], -1)
         g = getattr(got, name)[..., sel]
         assert float((g - r).abs().max() / r.abs().max()) <= 1e-9, name
+
+
+def cut_buckets(eb, thermo, par, ks, n_grid=2048, n_fine=4096):
+    """Tables of ``par`` and coarse lockstep buckets of the modes ``ks`` (TCA
+    and post-TCA steps) built from them."""
+    bg = thermo.background_tables(par, n_grid=n_grid)
+    th = thermo.thermo_tables(par, bg, n_fine=n_fine)
+    tab = eb.make_tables(par, bg, th)
+    hb, ht = eb.host_tables(bg, th)
+    lna_out = np.unique(np.log(1.0 / (1.0 + np.array([1.0, 0.5, 0.0]))))
+    raw, rm = eb.build_schedule(ks, hb, ht, lna_out, pad=False, phase_acc=0.9, dlna_max=0.2)
+    buckets = []
+    for idx in eb.bucket_indices([g.size for g in raw]):
+        grids = eb._pad_grids([raw[i] for i in idx])
+        masks = eb._pad_masks([rm[i] for i in idx])
+        buckets.append((idx, grids, masks, eb.out_indices(grids, lna_out)))
+    assert any(m.any() for m in rm) and not all(m.all() for m in rm)
+    return tab, buckets, lna_out
+
+
+@pytest.mark.gpu
+def test_eb_solve_jvp_matches_plain_on_card(cuda):
+    """``eb_solve_jvp`` (through ``eb_solve`` under forward AD) against
+    forward AD of the plain step loop on the padded buckets: two
+    cosmologies, three modes on coarse schedules with TCA and post-TCA steps,
+    a seeded tangent in the six table fields; the tangents of δ_m, δ_cb and
+    ζ_ini within 1e-9 of their largest |value|; one launch of each kernel."""
+    from torch.autograd import forward_ad
+    from eftpipe_tpu_torch.boltzmann import _kernels, einstein_boltzmann as eb, thermo
+    from eftpipe_tpu_torch.boltzmann.dual import DenseTangents
+
+    par = eb.stack_params([thermo.CosmoParams(omega_b=0.0224, omega_cdm=0.12, h=0.68,
+                                              ln10As=3.044, ns=0.9649, deg_ncdm=3.0),
+                           thermo.CosmoParams(omega_b=0.023, omega_cdm=0.125, h=0.69,
+                                              ln10As=3.0, ns=0.96, deg_ncdm=3.0)], cuda)
+    ks = np.array([1e-4, 2e-3, 0.02])
+    with torch.no_grad():
+        _, buckets, _ = cut_buckets(eb, thermo, par, ks)
+    with forward_ad.dual_level(), DenseTangents():
+        dpar = seeded_dual(par, np.random.default_rng(5))
+        bg = thermo.background_tables(dpar, n_grid=2048)
+        tab = eb.make_tables(dpar, bg, thermo.thermo_tables(dpar, bg, n_fine=4096))
+        _kernels.reset_launch_counts()
+        got = eb.eb_solve(tab, ks, buckets)
+        assert _kernels.LAUNCHES["eb_solve"] == 1 and _kernels.LAUNCHES["eb_solve_jvp"] == 1
+        ref = [eb.eb_solve_plain(tab, ks[b[0]], b[1], b[2], b[3]) for b in buckets]
+        sel = torch.as_tensor(np.concatenate([b[0] for b in buckets]), device=cuda)
+        for name in ("delta_m", "delta_cb", "zeta_ini"):
+            r = forward_ad.unpack_dual(torch.cat([getattr(o, name) for o in ref], -1)).tangent
+            g = forward_ad.unpack_dual(getattr(got, name)).tangent[..., sel]
+            assert torch.isfinite(r).all() and float(r.abs().max()) > 0, name
+            assert rel_tangent_err(g, r) <= 1e-9, name
+
+
+@pytest.mark.gpu
+def test_solver_gradient_on_card_matches_plain_autograd(cuda):
+    """The solver's gradient on the card (the route of forward-mode tangent
+    kernels, ``_SolverTables``) against reverse autograd of the plain
+    versions on the CPU, on a cut solver (three modes, coarse schedules,
+    the tables on a 512-point grid with the recombination on it): a seeded
+    loss of every output of ``EBSolver`` in the six table fields, ln10As and
+    n_s at W=2, rtol 1e-8; the card's outputs with the gradient equal those
+    without it bit for bit."""
+    import functools
+
+    from eftpipe_tpu_torch.boltzmann import _kernels, einstein_boltzmann as eb, thermo
+    from eftpipe_tpu_torch.convert import eb_solver_from_numpy
+
+    fields = eb.TABLE_FIELDS + ("ln10As", "ns")
+    rows = dict(omega_b=[0.0224, 0.023], omega_cdm=[0.12, 0.125], h=[0.68, 0.69],
+                ln10As=[3.044, 3.0], ns=[0.9649, 0.96], m_ncdm=[0.02, 0.03],
+                n_ur=[0.00641, 0.00641], yhe=[0.2454, 0.25])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(eb, "background_tables", functools.partial(thermo.background_tables,
+                                                              n_grid=512))
+        mp.setattr(eb, "thermo_tables", functools.partial(thermo.thermo_tables, n_fine=0))
+        ks = np.array([1e-4, 1e-3, 0.01])
+        with torch.no_grad():
+            par0 = eb.stack_params([thermo.CosmoParams(**{k: v[0] for k, v in rows.items()},
+                                                       deg_ncdm=3.0)], "cpu")
+            bg = eb.background_tables(par0)
+            hb, ht = eb.host_tables(bg, eb.thermo_tables(par0, bg))
+        raw, rm = eb.build_schedule(ks, hb[0], ht[0], np.log([1 / 1.5]), pad=False,
+                                    phase_acc=0.9, dlna_max=0.2)
+        grids, masks = eb._pad_grids(raw), eb._pad_masks(rm)
+        sched = dict(k_mpc=ks, z_out=[0.5], lna_out=np.log([1 / 1.5]), dlna_f=0.02,
+                     growth_stencil=False,
+                     buckets=[(np.arange(ks.size), grids, masks,
+                               eb.out_indices(grids, np.log([1 / 1.5])))])
+        rng = np.random.default_rng(6)
+        weights = None
+
+        def value_and_grad(device):
+            nonlocal weights
+            solver = eb_solver_from_numpy(sched, device=device)
+            leaves = {k: torch.tensor(v, dtype=torch.float64, device=device,
+                                      requires_grad=k in fields) for k, v in rows.items()}
+            lp = solver(thermo.CosmoParams(**leaves, deg_ncdm=3.0))
+            outs = [lp.pk, lp.pk_cb, lp.sigma8, lp.h_of_z, lp.da_of_z, lp.rs_drag]
+            if weights is None:
+                weights = [rng.standard_normal(o.shape) / float(o.detach().abs().mean())
+                           for o in outs]
+            loss = sum((torch.as_tensor(w, device=device) * o).sum()
+                       for w, o in zip(weights, outs))
+            grads = torch.autograd.grad(loss, [leaves[k] for k in fields])
+            with torch.no_grad():
+                ref = solver(thermo.CosmoParams(**leaves, deg_ncdm=3.0))
+            return outs, ref, [g.cpu() for g in grads]
+
+        _, _, want = value_and_grad("cpu")
+        _kernels.reset_launch_counts()
+        outs, ref, got = value_and_grad(cuda)
+    assert _kernels.LAUNCHES["eb_solve_jvp"] == 1 and _kernels.LAUNCHES["recomb_scan_jvp"] == 1
+    for o, r in zip(outs, [ref.pk, ref.pk_cb, ref.sigma8, ref.h_of_z, ref.da_of_z,
+                           ref.rs_drag]):
+        assert torch.equal(o.detach(), r)
+    for name, g, w in zip(fields, got, want):
+        assert torch.isfinite(w).all() and float(w.abs().max()) > 0, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-8,
+                                   atol=1e-8 * float(w.abs().max()), err_msg=name)
 
 
 @pytest.mark.gpu

@@ -3,6 +3,7 @@ JAX nor the JAX package, and its entry points refuse a missing card."""
 
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -37,7 +38,8 @@ _MODULES = [
     "eftpipe_tpu_torch.analysis.bestfit", "eftpipe_tpu_torch.cli",
     "eftpipe_tpu_torch.compat", "eftpipe_tpu_torch.compat.cobaya",
     "eftpipe_tpu_torch.boltzmann.thermo", "eftpipe_tpu_torch.boltzmann.einstein_boltzmann",
-    "eftpipe_tpu_torch.boltzmann._kernels", "eftpipe_tpu_torch.boltzmann.neutrino",
+    "eftpipe_tpu_torch.boltzmann._kernels", "eftpipe_tpu_torch.boltzmann.dual",
+    "eftpipe_tpu_torch.boltzmann.neutrino",
     "eftpipe_tpu_torch.boltzmann.bridges", "eftpipe_tpu_torch.analysis.kaiser",
     "eftpipe_tpu_torch.analysis.convert", "eftpipe_tpu_torch.analysis.zeff",
     "eftpipe_tpu_torch.native", "eftpipe_tpu_torch.utils.tools",
@@ -163,9 +165,11 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
     (dict(boltzmann={"name": "solver"}), "A8"),
 ])
 def test_unported_options_raise_not_implemented(tmp_path, kwargs, match):
-    """What the port still leaves out raises, naming its ROADMAP item: the
-    solver's gradient on the card (A8.1: its kernels refuse an input that
-    requires grad).  The Einstein-Boltzmann solver provider (A8) is ported:
+    """What the port still leaves out raises, naming its ROADMAP item: a
+    second derivative through the solver on the card (A8.2: the double
+    backward of its gradient's Function, here on a stand-in for the solver;
+    its first derivative there, A8.1, is ported).  The Einstein-Boltzmann
+    solver provider (A8) is ported:
     ``build_provider`` returns a ``SolverProvider``.  The trained-transfer
     emulator provider (A7) is ported: it builds from a
     ``TransferEmulator.save`` file and gives the JAX package's provider's
@@ -195,7 +199,7 @@ def test_unported_options_raise_not_implemented(tmp_path, kwargs, match):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12)
         return
     import numpy as np
-    from eftpipe_tpu_torch.boltzmann import _kernels
+    from eftpipe_tpu_torch.boltzmann import einstein_boltzmann as te
     from eftpipe_tpu_torch.boltzmann.einstein_boltzmann import SolverProvider
     from eftpipe_tpu_torch.convert import eb_solver_from_numpy
 
@@ -208,5 +212,11 @@ def test_unported_options_raise_not_implemented(tmp_path, kwargs, match):
     prov = build_provider(dict(kwargs["boltzmann"], solver=solver, om_fid=0.31), cfg, 0.7,
                           device="cpu")
     assert isinstance(prov, SolverProvider) and prov.solver.device.type == "cpu"
+    h = torch.ones(2, dtype=torch.float64, requires_grad=True)
+    stand_in = types.SimpleNamespace(table_part=lambda par: (2.0 * par.h,))
+    par = types.SimpleNamespace(_replace=lambda **kw: types.SimpleNamespace(**kw))
+    (out,) = te._SolverTables.apply(stand_in, par, [2.0 * torch.ones(2, 1, dtype=torch.float64)], ("h",), h)
+    (g,) = torch.autograd.grad(out.sum(), h, retain_graph=True)
+    assert torch.equal(g, 2.0 * torch.ones(2, dtype=torch.float64))
     with pytest.raises(NotImplementedError, match=match):
-        _kernels.no_grad_check("eb_solve", [torch.zeros(1, requires_grad=True)])
+        torch.autograd.grad(out.sum(), h, create_graph=True)

@@ -17,6 +17,7 @@ import functools
 import json
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -545,11 +546,13 @@ def test_mesh_and_unported_providers_raise(template, tmp_path):
     """``run_mcmc(mesh=)`` (A13, once listed here as raising) on a one-rank
     gloo group gives the mesh-less chain bit for bit, and refuses a mesh on
     another device; the solver provider (A8, once
-    listed here) builds on the analysis' device, and only its gradient on
-    the card raises (A8.1); the ``emulator`` provider (A7, once listed here)
+    listed here) builds on the analysis' device, and on the card only a
+    second derivative through it raises (A8.2: the double backward of its
+    gradient's Function, here on a stand-in for the solver; its gradient
+    there, A8.1, is ported); the ``emulator`` provider (A7, once listed here)
     builds from a ``TransferEmulator.save`` file and a config-built analysis
     on it gives the JAX analysis' ``logp`` (float64, 1e-8)."""
-    from eftpipe_tpu_torch.boltzmann import _kernels
+    from eftpipe_tpu_torch.boltzmann import einstein_boltzmann as te
     from eftpipe_tpu_torch.boltzmann.einstein_boltzmann import SolverProvider
     from eftpipe_tpu_torch.convert import eb_solver_from_numpy
     from test_torch_compat import write_transfer_emulator
@@ -580,8 +583,12 @@ def test_mesh_and_unported_providers_raise(template, tmp_path):
     prov = torch_orch.build_provider({"name": "solver", "solver": solver}, cfg, 0.7,
                                      device="cpu")
     assert isinstance(prov, SolverProvider)
-    with pytest.raises(NotImplementedError, match="A8"):
-        _kernels.no_grad_check("recomb_scan", [torch.ones(1, requires_grad=True)])
+    h = torch.ones(2, dtype=torch.float64, requires_grad=True)
+    stand_in = types.SimpleNamespace(table_part=lambda par: (par.h ** 2,))
+    par = types.SimpleNamespace(_replace=lambda **kw: types.SimpleNamespace(**kw))
+    (out,) = te._SolverTables.apply(stand_in, par, [2.0 * h.detach()[:, None]], ("h",), h)
+    with pytest.raises(NotImplementedError, match="A8.2"):
+        torch.autograd.grad(out.sum(), h, create_graph=True)
     with pytest.raises(ValueError, match="unknown boltzmann"):
         torch_orch.build_provider({"name": "nope"}, cfg, 0.7)
 

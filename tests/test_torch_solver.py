@@ -5,7 +5,11 @@ schedule (bit for bit), the right-hand side, one RK4 step, short solves of
 low-k modes on schedules coarsened through the JAX ``build_schedule``'s own
 options, the ``solver`` provider on a solver cut to a handful of modes the
 same way in both packages, the derivative of δ_m in ω_cdm (autograd against
-JAX's), and an analysis on the ``solver`` provider.
+JAX's), and an analysis on the ``solver`` provider.  Then the gradient's
+forward-mode route, the card's (``einstein_boltzmann._SolverTables``), run
+here over the plain versions under forward AD: its tangent against JAX's,
+its gradient against reverse autograd of the plain path, an analysis'
+∇logp through it, and its refusal of a second derivative (ROADMAP A8.2).
 
 On the CPU the kernels' plain versions run (``recomb_scan_plain``,
 ``eb_solve_plain``).  The recombination recurrence is a Python step loop
@@ -25,7 +29,8 @@ import torch
 
 from eftpipe_tpu.boltzmann import thermo as jt, einstein_boltzmann as je
 from eftpipe_tpu.models.config import EFTConfig as JConfig
-from eftpipe_tpu_torch.boltzmann import thermo as tt, einstein_boltzmann as te, _kernels
+from eftpipe_tpu_torch.boltzmann import thermo as tt, einstein_boltzmann as te
+from eftpipe_tpu_torch.boltzmann.dual import DenseTangents
 from eftpipe_tpu_torch.convert import eb_solver_from_numpy
 from eftpipe_tpu_torch.models.config import EFTConfig as TConfig
 
@@ -41,6 +46,7 @@ DEG = 3.0
 CUT_K = np.array([1e-4, 1e-3, 2e-3, 3e-3])
 CUT_OPTS = dict(phase_acc=0.9, dlna_max=0.2)
 CUT_GRID = 512  # the background grid of the cut solves, the recombination on it
+COARSE_GRID = 128  # the same for the analysis through the gradient's route
 # the JAX tables, jitted: compiled once per grid (eager, each call dispatches
 # and compiles its ops one by one)
 JBG = jax.jit(jt.background_tables, static_argnames=("lna_min", "n_grid"))
@@ -356,30 +362,15 @@ def test_solve_gradient_matches_jax_grad(cut_solvers, jax_cut_solve):
     np.testing.assert_allclose(got.numpy()[0], float(want), rtol=1e-7)
 
 
-def test_kernel_wrappers_refuse_gradients_naming_a8_1():
-    """No backward through the CUDA kernels: an input that requires grad is
-    refused, naming the ROADMAP item (the check runs before the launch)."""
-    x = torch.zeros(2, requires_grad=True)
-    for kernel in ("eb_solve", "recomb_scan"):
-        with pytest.raises(NotImplementedError, match="A8.1"):
-            _kernels.no_grad_check(kernel, [x])
-        _kernels.no_grad_check(kernel, [x.detach()])
-        with torch.no_grad():
-            _kernels.no_grad_check(kernel, [x])
-
-
-def test_analysis_on_the_solver_provider(cut_solvers, tmp_path):
-    """A port-only config-driven analysis on ``boltzmann: {name: solver}``
-    (the cut solver passed in the block, narrow loop widths): ``logp`` at W=2
-    is finite, in the analysis' float32 (the solve in float64)."""
-    import eftpipe_tpu_torch.api.orchestrate as torch_orch
-
-    _, ts = cut_solvers
+def solver_analysis_info(ts, tmp_path) -> dict:
+    """A port-only config on ``boltzmann: {name: solver}`` (the cut solver
+    ``ts`` passed in the block), sampling ω_cdm, h and b1, with its data and
+    covariance files written to ``tmp_path``."""
     kout = np.round(np.arange(0.01, 0.2049, 0.005), 6)
     np.savetxt(tmp_path / "data.txt", np.column_stack([kout, 2e4 / (1 + 30 * kout), 8e3 * kout]),
                header="k P0 P2")
     np.savetxt(tmp_path / "cov.txt", np.eye(2 * kout.size) * 25.0)
-    info = {
+    return {
         "theory": {"tracers": {"LRG": {
             "z": 0.5, "nd": 5e-5, "ls": [0, 2], "with_IRresum": True,
             "with_APeffect": {"Om_AP": 0.31},
@@ -394,15 +385,180 @@ def test_analysis_on_the_solver_provider(cut_solvers, tmp_path):
                                         "kmin": 0.02, "kmax": 0.2}},
                        "marg": {"LRG_": {"b3": {"loc": 0, "scale": 2}}}},
     }
+
+
+def solver_analysis_thetas(an) -> np.ndarray:
+    """Two points: θ₀ and θ₀ scaled by 1 + 1e-3."""
+    theta0 = np.asarray(an.space.theta0())
+    return theta0[None] * (1.0 + 1e-3 * np.array([[0.0] * theta0.size, [1.0] * theta0.size]))
+
+
+def test_analysis_on_the_solver_provider(cut_solvers, tmp_path):
+    """A port-only config-driven analysis on ``boltzmann: {name: solver}``
+    (the cut solver passed in the block, narrow loop widths): ``logp`` at W=2
+    is finite, in the analysis' float32 (the solve in float64)."""
+    import eftpipe_tpu_torch.api.orchestrate as torch_orch
+
+    _, ts = cut_solvers
+    info = solver_analysis_info(ts, tmp_path)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch_orch, "EFTConfig", functools.partial(TConfig, nfft_loop=64, nkin=80))
         an = torch_orch.Analysis.from_config(info, dtype=torch.float32, device="cpu",
                                              quadform="plain")
         assert isinstance(an.providers["LRG"], te.SolverProvider)
         assert np.array_equal(an.providers["LRG"].solver.k_mpc, ts.k_mpc)  # (a copy)
-        theta0 = np.asarray(an.space.theta0())
-        thetas = theta0[None] * (1.0 + 1e-3 * np.array([[0.0] * theta0.size,
-                                                         [1.0] * theta0.size]))
-        lp = an.logp(torch.as_tensor(thetas, dtype=torch.float32))
+        lp = an.logp(torch.as_tensor(solver_analysis_thetas(an), dtype=torch.float32))
     assert lp.dtype == torch.float32 and lp.shape == (2,)
     assert torch.isfinite(lp).all(), lp
+
+
+# ---------------------------------------------------------------------------
+# the gradient's forward-mode route: the card's, here over the plain versions
+# ---------------------------------------------------------------------------
+def on_the_tangent_route(par) -> bool:
+    """``einstein_boltzmann._tangent_route`` without its ``is_cuda``: the
+    route the card takes, forced on the CPU."""
+    return torch.is_grad_enabled() and any(getattr(par, n).requires_grad for n in te.TABLE_FIELDS)
+
+
+@pytest.fixture(scope="module")
+def solver_tangents(cut_solvers):
+    """The cut solver's table part at the two cosmologies through the
+    gradient's Function, reached by its private name: the Jacobian in the
+    six table fields (``table_tangents``: one pass under forward AD on 12
+    rows, here through the plain versions) and the Function's outputs,
+    whose graph ends in its backward."""
+    _, ts = cut_solvers
+    par = tpar(COSMOS)
+    fields = [getattr(par, n).clone().requires_grad_() for n in te.TABLE_FIELDS]
+    jac = ts.table_tangents(par, te.TABLE_FIELDS)
+    out = te._SolverTables.apply(ts, par, jac, te.TABLE_FIELDS, *fields)
+    return par, fields, jac, out
+
+
+def test_solver_tangent_matches_jax_jvp(solver_tangents, jax_cut_solve):
+    """The route's tangent in ω_cdm at the first cosmology against
+    ``jax.jvp`` of the JAX cut solve (``jax_cut_solve``), every mode and
+    output time of δ_m, δ_cb and ζ_ini."""
+    _, _, jac, _ = solver_tangents
+    _, _, dout = jax_cut_solve
+    p = te.TABLE_FIELDS.index("omega_cdm")
+    for i, name in enumerate(("delta_m", "delta_cb", "zeta_ini")):
+        assert np.isfinite(getattr(dout, name)).all() and np.abs(getattr(dout, name)).max() > 0
+        close(jac[i][0, p].numpy(), getattr(dout, name), 1e-7, name)
+
+
+def test_solver_gradient_matches_plain_reverse(cut_solvers, solver_tangents):
+    """The Function's gradient in the six table fields at W=2 (its backward
+    contracts the tangents with a seeded cotangent of every output) against
+    reverse autograd of the plain table part; its outputs are the plain
+    ones bit for bit."""
+    _, ts = cut_solvers
+    par, fields, _, out = solver_tangents
+    rng = np.random.default_rng(3)
+    weights = [torch.as_tensor(rng.standard_normal(o.shape)) / o.detach().abs().mean()
+               for o in out]
+
+    def loss(outs):
+        return sum((w * o).sum() for w, o in zip(weights, outs))
+
+    got = torch.autograd.grad(loss(out), fields, retain_graph=True)
+    leaves = [getattr(par, n).clone().requires_grad_() for n in te.TABLE_FIELDS]
+    plain = ts.table_part(par._replace(**dict(zip(te.TABLE_FIELDS, leaves))))
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b.detach())
+    want = torch.autograd.grad(loss(plain), leaves)
+    for name, g, w in zip(te.TABLE_FIELDS, got, want):
+        assert torch.isfinite(w).all() and w.abs().max() > 0, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-10,
+                                   atol=1e-10 * float(w.abs().max()), err_msg=name)
+
+
+def test_double_backward_through_the_solver_raises_naming_a8_2(solver_tangents):
+    """No second derivative through the gradient's Function (ROADMAP A8.2):
+    a backward with ``create_graph=True`` (``Analysis.laplace_cov``'s
+    Hessian) raises, naming it, rather than leave the solver's curvature
+    out of a Hessian."""
+    _, fields, _, out = solver_tangents
+    with pytest.raises(NotImplementedError, match="A8.2"):
+        torch.autograd.grad(out[0].sum(), fields, create_graph=True)
+
+
+def coarse_solver(ts) -> te.EBSolver:
+    """``ts`` cut further for the analysis' gradient (the route's cost is
+    per operation, so per step): its two lowest modes on a schedule of ln-a
+    steps ≤ 1, the tables on a ``COARSE_GRID``-point grid (the caller's
+    patch of ``te.background_tables``)."""
+    fid = te.stack_params([tt.CosmoParams(**te.FIDUCIAL)], "cpu")
+    bg, th, _ = ts.tables(fid)
+    hb, ht = te.host_tables(bg, th)
+    k = CUT_K[:2]
+    raw, rm = te.build_schedule(k, hb[0], ht[0], ts.lna_out, pad=False, phase_acc=0.9,
+                                dlna_max=1.0)
+    grids, masks = te._pad_grids(raw), te._pad_masks(rm)
+    return eb_solver_from_numpy(dict(
+        k_mpc=k, z_out=ts.z_out, lna_out=ts.lna_out, dlna_f=ts.dlna_f,
+        growth_stencil=ts.growth_stencil,
+        buckets=[(np.arange(k.size), grids, masks, te.out_indices(grids, ts.lna_out))]),
+        device="cpu")
+
+
+def test_analysis_gradient_through_the_tangent_route(cut_solvers, tmp_path):
+    """∇logp of a float64 analysis on the solver provider through the
+    gradient's Function (its predicate forced, the card's route) against
+    plain autograd: rtol 1e-8; the two ``logp`` are equal bit for bit.  The
+    solver is ``coarse_solver``'s."""
+    import eftpipe_tpu_torch.api.orchestrate as torch_orch
+
+    _, ts = cut_solvers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(te, "background_tables",
+                   functools.partial(tt.background_tables, n_grid=COARSE_GRID))
+        mp.setattr(torch_orch, "EFTConfig", functools.partial(TConfig, nfft_loop=64, nkin=80))
+        an = torch_orch.Analysis.from_config(solver_analysis_info(coarse_solver(ts), tmp_path),
+                                             dtype=torch.float64, device="cpu", quadform="plain")
+        thetas = solver_analysis_thetas(an)
+
+        def value_and_grad():
+            x = torch.as_tensor(thetas).requires_grad_()
+            lp = an.logp(x)
+            (g,) = torch.autograd.grad(lp.sum(), x)
+            return lp.detach(), g
+
+        want = value_and_grad()
+        mp.setattr(te, "_tangent_route", on_the_tangent_route)
+        got = value_and_grad()
+    assert torch.isfinite(want[0]).all() and torch.isfinite(want[1]).all()
+    assert torch.equal(got[0], want[0])
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), rtol=1e-8,
+                               atol=1e-8 * float(want[1].abs().max()))
+
+
+@pytest.mark.parametrize("tca", [True, False])
+def test_dense_tangents_change_no_number(jax_tables, tca):
+    """The dual pass's torch-function mode (``boltzmann/dual.py``: number
+    arithmetic on the ``Scalar`` overloads, dense zero tangents) gives plain
+    forward AD's primal and tangent bit for bit: one RK4 step with its TCA
+    projection, a tangent on the state and on the tables."""
+    from torch.autograd import forward_ad
+
+    _, _, _, tab = jax_tables
+    ttab = port_tables(tab)
+    rng = np.random.default_rng(9)
+    ks = np.array([1e-3, 0.05])
+    y = t(rng.standard_normal((1, ks.size, te.NSTATE)))
+    dy, dst = t(rng.standard_normal(y.shape)), t(rng.standard_normal(ttab.stacked.shape))
+    mask = torch.tensor([tca] * ks.size)
+
+    def step():
+        dual = ttab._replace(stacked=forward_ad.make_dual(ttab.stacked, dst))
+        out, _ = te._rk4_advance(forward_ad.make_dual(y, dy), t(ks), dual, t([-9.0] * 2),
+                                 t([-8.98] * 2), mask, mask)
+        return forward_ad.unpack_dual(out)
+
+    with forward_ad.dual_level():
+        want = step()
+        with DenseTangents():
+            got = step()
+    assert want.tangent is not None and torch.isfinite(want.tangent).all()
+    assert torch.equal(got.primal, want.primal) and torch.equal(got.tangent, want.tangent)
