@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # build + kernel checks at small depth only
     python3 chip_smoke.py --out DIR  # also write chip_smoke.json and ptxas.log to DIR
     python3 chip_smoke.py --against DIR  # also time DIR/quadform.cu's float64 kernels
+                                         # and DIR/boltzmann.cu's eb_solve, eb_solve_jvp
 
 Phases, each printing one JSON line:
 
@@ -107,8 +108,11 @@ Phases, each printing one JSON line:
    16 and 64 on the 4-D training recipe (``--sample-mnu``: the schedule over
    the 16 corners of the wide box and the mass axis), each kernel's time
    alone, its bound (float64 operations counted from the source at the
-   card's 34 TFLOP/s float64 rate; beside it a model of the longest mode's
-   critical path, one float64 operation a cycle, in this line only); (d) a float32 LRG ``Analysis`` on the ``solver`` provider at W=4:
+   card's 34 TFLOP/s float64 rate; beside it, in this line only, two models
+   of the longest mode's critical path: one float64 operation a cycle on one
+   thread, and the latency chain of the warp design's step), the kernel's
+   microseconds a step of the longest mode (``us_per_step_longest``); (d) a
+   float32 LRG ``Analysis`` on the ``solver`` provider at W=4:
    finite ``logp`` and the launches of ``eb_solve``, ``recomb_scan`` and
    ``qf_real`` in one ``logp`` call.
 10b. ``solver_grad`` — the solver's gradient on the card (forward mode: the
@@ -126,13 +130,16 @@ Phases, each printing one JSON line:
    of its own ``logp`` (two steps, every perturbed point in one batch; each
    component ≤ 1e-5 at the better step), the solver's outputs with and
    without the gradient equal bit for bit and ``logp`` within 1e-12, and
-   the launches of one value and gradient (one of each tangent kernel);
+   the launches of one value and gradient (one of each of the four
+   kernels: the primal pass takes the forward kernels, the tangent pass only
+   the tangent kernels, which give the primal too);
    (d) ``run_mcmc(sampler="hmc", init="ball")`` on the float32 analysis (2
    chains, ``n_leapfrog=1``, ``warmup_steps=1``, 1 step): finite chain
    and gradients, the acceptance rate; (e) seconds per value and gradient
    at W=1 and 4 against seconds per ``logp``, and the tangent kernels alone
    on the W·P rows of a W=4 value and gradient beside the forward kernels
-   on the same rows, with their bounds; (f) ``laplace_cov()`` raises
+   on the same rows, with their bounds, ``us_per_step_longest`` and the
+   warp step model of the provider's longest mode; (f) ``laplace_cov()`` raises
    ``NotImplementedError`` naming A8.2, its message unchanged.
 11. ``training`` — the shipped P(k) artifact retrained at full width by
    ``eftpipe_tpu_torch/tools/train_solver_emulator.py``'s library functions
@@ -164,7 +171,13 @@ With ``--against DIR`` the ``against`` line follows ``kernel_checks``: another
 ``quadform.cu`` with the same C interface (for example the parent commit's,
 copied into a git-ignored directory) is built there and its float64 kernels
 are checked and timed beside this tree's at the timed float64 shapes, in
-turns (theirs, ours, ours, theirs) on the same inputs.
+turns (theirs, ours, ours, theirs) on the same inputs.  Where DIR holds a
+``boltzmann.cu`` of the same C interface, it is built into the build
+directory, and its ``eb_solve`` is timed beside this tree's in the same
+turns at each W of the ``solver`` phase's (e), its ``eb_solve_jvp`` at the
+W·P rows of ``solver_grad``'s (e), each with its largest difference from
+ours (``against`` entries of those lines; their registers and spills in
+the ``against_build`` line).
 
 14. ``kernels`` line (launches by path, ``training`` and ``mesh`` among
    them; every kernel instance, float32 and float64 ``qf_real`` and
@@ -1499,6 +1512,27 @@ EB_OPS_PER_STEP = 5700
 # float64 operation a cycle (a warp's FMA, two operations, takes two cycles on a
 # sub-partition's 16 float64 lanes), at the H100 SXM boost clock
 SM_CLOCK_HZ = 1.98e9
+# eb_solve's per-step latency model (a model, not a measurement; the solver
+# lines only): one warp walks a mode, and a step's dependent chain is four
+# right-hand sides and the top of the step.  A right-hand side is one round
+# of shuffles (the 21 broadcast entries and the l+-1 neighbours, issued
+# together), then the dependent float64 operations counted from
+# csrc/boltzmann.cu after it: the metric's 9 (the psi_0 sum, rho_nc, drho,
+# h'); after tight coupling the sources' 6 (h'/15 by dv, a quotient whose
+# divisor's reciprocal is known: 3), the slot's 2, the quotient by conf_h
+# (dv: 3) and the stage's FMA; in tight coupling the fluid's 37 (five dv
+# quotients among them) instead of the sources'.  The top of the step
+# interpolates its two points into shared memory (2 operations and eps's
+# square root), derives their quotients and each lane's k / (2l + 1) (dv
+# with its reciprocal's Newton steps: 8 each), with three shared-memory
+# round trips between.  Latencies in cycles of one SM sub-partition (not
+# measured on this card): a shuffle round 30, a dependent float64 operation
+# 8, a square root 40, a shared-memory round trip 30.  It leaves out the
+# issue of the warp's instructions and every stall but these.
+WARP_LATENCY = dict(shuffle=30, dop=8, quotient=40, shared=30)
+WARP_RHS_CHAIN = {"tca": dict(shuffle=1, dop=9 + 37 + 2 + 3 + 1),
+                  "post_tca": dict(shuffle=1, dop=9 + 6 + 2 + 3 + 1)}
+WARP_STEP_TOP = dict(dop=2 + 8 + 8, quotient=1, shared=3)
 SOLVER_REL_BUDGET = {"recomb_scan": 1e-10, "eb_solve": 1e-9}
 # the box whose corners built the schedule of tests/goldens/
 # solver_sample_4d_heldout.npz: tools/train_solver_emulator.py as it stood
@@ -1561,6 +1595,30 @@ def eb_bound(mode_steps: int, longest: int, nbytes: int, dual: bool = False) -> 
                 critical_path_model_ms=longest * ops / mode_steps / SM_CLOCK_HZ * 1e3)
 
 
+def warp_step_model(sched, dual: bool = False) -> dict:
+    """The per-step latency model of ``eb_solve``'s warp design
+    (``WARP_RHS_CHAIN``) on the longest mode of ``sched``: cycles of a
+    step's chain in tight coupling and after it, the mode's steps of each,
+    and its chain in ms and in µs a step at the boost clock.  ``dual``: the
+    tangent kernel, whose tangent half runs beside its value half on the
+    same chain, but for one more dependent product in each dv quotient (2
+    after tight coupling, 7 in it)."""
+    def cycles(chain):
+        return sum(WARP_LATENCY[k] * n for k, n in chain.items())
+
+    per = {}
+    for phase, chain in WARP_RHS_CHAIN.items():
+        extra = (7 if phase == "tca" else 2) if dual else 0
+        per[phase] = 4 * cycles(dict(chain, dop=chain["dop"] + extra)) + cycles(WARP_STEP_TOP)
+    i = int(np.argmax(sched.steps))
+    tca = int(sched.tca[sched.offsets[i]:sched.offsets[i + 1] - 1].sum())
+    post = int(sched.steps[i]) - tca
+    ms = (tca * per["tca"] + post * per["post_tca"]) / SM_CLOCK_HZ * 1e3
+    return dict(cycles_per_step=per, latency_cycles=WARP_LATENCY, longest_tca_steps=tca,
+                longest_post_tca_steps=post, model_ms=ms,
+                model_us_per_step=ms * 1e3 / max(tca + post, 1))
+
+
 def recomb_bound(nw: int, n: int, dual: bool = False) -> dict:
     ops = nw * n * RECOMB_OPS_PER_STEP * (DUAL_OPS_FACTOR if dual else 1.0)
     t_ops = ops / FMA_FLOPS[torch.float64] * 1e3
@@ -1578,6 +1636,73 @@ def eb_bytes(tab, dsched: dict, nz: int, nk: int, dual: bool = False) -> int:
     nw = tab.stacked.shape[0]
     sched = sum(t.numel() * t.element_size() for t in dsched.values())
     return (2 if dual else 1) * (tab.stacked.numel() * 8 + 8 * (2 * nw * nz * nk + nw * nk)) + sched
+
+
+class AgainstSolver:
+    """Another ``boltzmann.cu`` with this tree's C interface (for example the
+    parent commit's, copied into a git-ignored directory), built into the
+    build directory; its ``eb_solve`` and ``eb_solve_jvp`` launched on the
+    inputs of this tree's wrappers, uncounted."""
+
+    def __init__(self, src_dir: str):
+        import ctypes
+
+        self.src = os.path.join(src_dir, "boltzmann.cu")
+        lib_path = _build.build_dir() / "libboltzmann_against.so"
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+                              self.src], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise SystemExit(f"chip_smoke: --against: nvcc failed on {self.src}:\n"
+                             f"{res.stdout}{res.stderr}")
+        self.ptxas = ptxas_summary(res.stdout + res.stderr)
+        self.lib = ctypes.CDLL(str(lib_path))
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        self.lib.eft_eb_solve.argtypes = [ptr] * 11 + [i] * 5 + [ptr]
+        self.lib.eft_eb_solve_jvp.argtypes = [ptr] * 13 + [i] * 5 + [ptr]
+
+    def _launch(self, fn, *tensors, ints):
+        code = fn(*(t.data_ptr() for t in tensors), *ints,
+                  torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise SystemExit(f"chip_smoke: --against kernel failed to launch ({code})")
+
+    def eb_solve(self, tab, dsched: dict, nk: int):
+        nw, ng = eb._check_eb(tab, dsched)
+        nm, nz = dsched["out_idx"].shape
+        out = torch.zeros((2 * nw * nz * nk + nw * nk,), dtype=torch.float64, device="cuda")
+        self._launch(self.lib.eft_eb_solve, tab.stacked.transpose(1, 2).contiguous(),
+                     *eb._eb_args(tab, dsched), out, ints=(nw, nm, nk, nz, ng))
+        return eb._eb_outputs(out, nw, nz, nk)
+
+    def eb_solve_jvp(self, tab, d_stacked, dsched: dict, nk: int):
+        nw, ng = eb._check_eb(tab, dsched)
+        nm, nz = dsched["out_idx"].shape
+        out = torch.zeros((2 * nw * nz * nk + nw * nk,), dtype=torch.float64, device="cuda")
+        dout = torch.zeros_like(out)
+        self._launch(self.lib.eft_eb_solve_jvp, tab.stacked.transpose(1, 2).contiguous(),
+                     d_stacked.transpose(1, 2).contiguous(), *eb._eb_args(tab, dsched), out,
+                     dout, ints=(nw, nm, nk, nz, ng))
+        return eb._eb_outputs(out, nw, nz, nk), eb._eb_outputs(dout, nw, nz, nk)
+
+
+def in_turns(theirs, ours) -> dict:
+    """``theirs`` and ``ours`` (callables returning a ``PerturbOut``, or
+    such pairs) timed in turns (theirs, ours, ours, theirs), and the largest
+    difference of their outputs, absolute and relative to each output's
+    largest |value|.  Launches of this tree's kernels are not counted."""
+    saved = dict(bk.LAUNCHES)
+    turns = [timed(fn)[1] for fn in (theirs, ours, ours, theirs)]
+    got, want = ours(), theirs()
+    bk.LAUNCHES.update(saved)
+    def flat(o):  # a PerturbOut, or (outputs, tangents)
+        return [t for part in (o if isinstance(o[0], tuple) else (o,)) for t in part]
+
+    pairs = list(zip(flat(got), flat(want)))
+    return dict(their_ms=[turns[0], turns[3]], ms=[turns[1], turns[2]],
+                speedup=(turns[0] + turns[3]) / (turns[1] + turns[2]),
+                max_abs_diff=max(float((g - w).abs().max()) for g, w in pairs),
+                max_rel_diff=max(rel_err(g, w) for g, w in pairs if float(w.abs().max()) > 0))
 
 
 def solver_check_recomb(nw: int = 4, n_fine: int = 4096) -> dict:
@@ -1736,9 +1861,10 @@ def solver_analysis(nw: int) -> tuple[dict, dict]:
                 logp_seconds=seconds, launches=counts), by_shape
 
 
-def solver_phase(lines: list, out_dir=None) -> dict:
+def solver_phase(lines: list, out_dir=None, against=None) -> dict:
     """Phase 10: the Einstein-Boltzmann solver.  Returns the launches of its
-    paths, the ``qf_real`` shapes of its analysis and its kernels' rows."""
+    paths, the ``qf_real`` shapes of its analysis and its kernels' rows.
+    ``against``: an :class:`AgainstSolver` timed beside ``eb_solve`` in (e)."""
     t_phase = time.perf_counter()
     out, by_path = {}, {}
     # (c) first: the golden's recipe (the envelope over the corners of the
@@ -1763,7 +1889,8 @@ def solver_phase(lines: list, out_dir=None) -> dict:
                            longest_mode_steps=int(sched.steps.max()),
                            mode_steps=int(sched.steps.sum()),
                            padded_mode_steps=int(sum(b[1].shape[0] * (b[1].shape[1] - 1)
-                                                     for b in solver.buckets)))
+                                                     for b in solver.buckets)),
+                           warp_step_model=warp_step_model(sched))
 
     # (a), (b): each kernel against its plain version (launches uncounted)
     out["recomb_check"] = solver_check_recomb()
@@ -1786,9 +1913,13 @@ def solver_phase(lines: list, out_dir=None) -> dict:
         nz, nk = solver.lna_out.size, solver.k_mpc.size
         times[nw] = dict(seconds_per_solve=solve_ms / 1e3, cosmologies_per_s=nw / (solve_ms / 1e3),
                          eb_solve_ms=eb_ms, recomb_scan_ms=recomb_ms,
+                         us_per_step_longest=eb_ms * 1e3 / int(sched.steps.max()),
                          eb_solve=eb_bound(int(sched.steps.sum()) * nw, int(sched.steps.max()),
                                            eb_bytes(tab, dsched, nz, nk)),
                          recomb_scan=recomb_bound(nw, thermo.N_FINE))
+        if against is not None:
+            times[nw]["against"] = in_turns(lambda: against.eb_solve(tab, dsched, nk),
+                                            lambda: eb.eb_solve_cuda(tab, dsched, nk))
     by_path["solver_times"] = dict(bk.LAUNCHES)
     out["times"] = times
 
@@ -2086,12 +2217,13 @@ def grad_hmc(an) -> tuple[dict, dict, dict]:
     return out, launches, dict(qf.LAUNCHES_BY_SHAPE)
 
 
-def grad_times(an, solver) -> tuple[dict, dict, dict]:
+def grad_times(an, solver, against=None) -> tuple[dict, dict, dict]:
     """(e): seconds per value and gradient of the float64 analysis at W = 1
     and 4 against seconds per ``logp``; at W=4 the tangent kernels alone on
     the rows of its tangent pass (W·P, P the differentiated table fields, as
     ``EBSolver.table_tangents`` seeds them), beside the forward kernels on
-    the same rows, and their bounds."""
+    the same rows, their bounds, µs a step of the longest mode and the warp
+    step model; ``against``'s ``eb_solve_jvp`` in turns with ours."""
     theta0 = np.asarray(an.space.theta0(), np.float64)
     prov = an.providers["LRG"]
     bk.reset_launch_counts()
@@ -2126,12 +2258,23 @@ def grad_times(an, solver) -> tuple[dict, dict, dict]:
     _, eb_ms = timed(lambda: eb.eb_solve_cuda(ptab, dsched, nk))
     sched = solver.schedule()
     rows = nw * len(names)
+    longest = int(sched.steps.max())
     times[nw].update(
         rows=rows, fields=list(names), eb_solve_jvp_ms=eb_jvp_ms, eb_solve_ms_same_rows=eb_ms,
         recomb_scan_jvp_ms=recomb_jvp_ms, recomb_scan_ms_same_rows=recomb_ms,
+        longest_mode_steps=longest, us_per_step_longest=dict(
+            eb_solve_jvp=eb_jvp_ms * 1e3 / longest, eb_solve=eb_ms * 1e3 / longest),
+        warp_step_model=dict(eb_solve_jvp=warp_step_model(sched, dual=True),
+                             eb_solve=warp_step_model(sched)),
         eb_solve_jvp=eb_bound(int(sched.steps.sum()) * rows, int(sched.steps.max()),
                               eb_bytes(ptab, dsched, nz, nk, dual=True), dual=True),
         recomb_scan_jvp=recomb_bound(rows, thermo.N_FINE, dual=True))
+    if against is not None:
+        times[nw]["against"] = dict(
+            eb_solve_jvp=in_turns(lambda: against.eb_solve_jvp(ptab, d_stacked, dsched, nk),
+                                  lambda: eb.eb_solve_jvp_cuda(ptab, d_stacked, dsched, nk)),
+            eb_solve=in_turns(lambda: against.eb_solve(ptab, dsched, nk),
+                              lambda: eb.eb_solve_cuda(ptab, dsched, nk)))
     return times, dict(bk.LAUNCHES), dict(qf.LAUNCHES_BY_SHAPE)
 
 
@@ -2150,11 +2293,12 @@ def grad_laplace(an) -> tuple[dict, dict, dict]:
             dict(bk.LAUNCHES), dict(qf.LAUNCHES_BY_SHAPE))
 
 
-def solver_grad_phase(solver, lines: list) -> dict:
+def solver_grad_phase(solver, lines: list, against=None) -> dict:
     """Phase 10b: the solver's gradient on the card (``solver_grad`` line).
-    ``solver``: the solver phase's 4-D recipe solver, for (b).  Returns the
-    solver kernels' launches by path, the ``qf_real`` launches by shape of
-    the paths, and the line."""
+    ``solver``: the solver phase's 4-D recipe solver, for (b); ``against``:
+    an :class:`AgainstSolver` timed in (e).  Returns the solver kernels'
+    launches by path, the ``qf_real`` launches by shape of the paths, and
+    the line."""
     t_phase = time.perf_counter()
     out, by_path, qf_paths = {}, {}, {}
     out["recomb_check"] = grad_check_recomb()
@@ -2165,7 +2309,7 @@ def solver_grad_phase(solver, lines: list) -> dict:
     out["fd"], by_path["solver_grad"], qf_paths["solver_grad"] = grad_fd_check(an64)
     out["hmc"], by_path["solver_hmc"], qf_paths["solver_hmc"] = grad_hmc(an32)
     out["times"], by_path["solver_grad_times"], qf_paths["solver_grad_times"] = grad_times(
-        an64, an64.providers["LRG"].solver)
+        an64, an64.providers["LRG"].solver, against)
     out["laplace"], by_path["solver_laplace"], qf_paths["solver_laplace"] = grad_laplace(an32)
     out["nvidia_smi"] = nvidia_smi_line()
     out["seconds"] = time.perf_counter() - t_phase
@@ -2185,8 +2329,10 @@ def solver_grad_phase(solver, lines: list) -> dict:
         failed.append(f"with/without the gradient {fd['solver_outputs_equal']} "
                       f"{fd['logp_rel_err_with_grad']}")
     la = fd["launches"]
-    if not (la["eb_solve_jvp"] == 1 and la["recomb_scan_jvp"] == 1 and la["eb_solve"] > 0
-            and la["recomb_scan"] > 0 and la["qf_real"] > 0):
+    # the primal pass launches the forward kernels, the tangent pass only the
+    # tangent kernels (they give the primal too): one each
+    if not (la["eb_solve_jvp"] == 1 and la["recomb_scan_jvp"] == 1 and la["eb_solve"] == 1
+            and la["recomb_scan"] == 1 and la["qf_real"] > 0):
         failed.append(f"launches of one value and gradient {la}")
     if not out["hmc"]["finite"]:
         failed.append(f"hmc {out['hmc']}")
@@ -2461,8 +2607,8 @@ def main() -> None:
                     help="build and check the kernels only, few timed calls")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--against", default=None,
-                    help="directory holding another quadform.cu whose float64 kernels are "
-                         "timed beside this tree's")
+                    help="directory holding another quadform.cu (its float64 kernels) and/or "
+                         "boltzmann.cu (its eb_solve, eb_solve_jvp), timed beside this tree's")
     ap.add_argument("--out", default=None,
                     help="directory that receives chip_smoke.json and ptxas.log")
     args = ap.parse_args()
@@ -2491,7 +2637,8 @@ def main() -> None:
             kernels_with_spills=sum(1 for k in kernels
                                     if (k["spill_stores"] or 0) + (k["spill_loads"] or 0)),
             sass=sass_counts(log["path"]),
-            registers={k["kernel"]: k["registers"] for k in kernels})
+            registers={k["kernel"]: k["registers"] for k in kernels},
+            spills={k["kernel"]: [k["spill_stores"], k["spill_loads"]] for k in kernels})
     lines.append(emit("build", seconds=build_s, sources=per_source))
     if args.out:
         with open(os.path.join(args.out, "ptxas.log"), "w") as f:
@@ -2524,10 +2671,14 @@ def main() -> None:
         rows += [check_kernel("qf_real", f64, args.batch, 255, s_, bl, gen=gen, n_timed=2)
                  for s_, bl in ((80, 114), (80, 76), (50, 28))]
     lines.append(emit("kernel_checks", kernels=rows))
-    if args.against:
+    against = None
+    if args.against and os.path.exists(os.path.join(args.against, "quadform.cu")):
         timed64 = [(r["kernel"], r["W"], r["N"], r["S"], r["BL"]) for r in rows
                    if r["dtype"] == "f64" and r["W"] >= 64]
         lines.append(emit("against", rows=against_rows(args.against, timed64, gen)))
+    if args.against and os.path.exists(os.path.join(args.against, "boltzmann.cu")):
+        against = AgainstSolver(args.against)
+        lines.append(emit("against_build", source=against.src, kernels=against.ptxas))
     by_path = {}
     if args.quick:
         print(smi)
@@ -2552,9 +2703,9 @@ def main() -> None:
     del lite
     stages_check(64, lines)
     by_path.update(analysis_phase(lines))
-    solver = solver_phase(lines, args.out)
+    solver = solver_phase(lines, args.out, against)
     by_path["solver_analysis"] = solver["qf_shapes"]
-    grad = solver_grad_phase(solver.pop("solver"), lines)
+    grad = solver_grad_phase(solver.pop("solver"), lines, against)
     by_path.update(grad["qf_paths"])
     solver["by_path"].update(grad["by_path"])
     solver["by_path"]["training"] = training_phase(lines)

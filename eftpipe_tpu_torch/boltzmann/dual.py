@@ -38,6 +38,23 @@ def tangent_or_zeros(t: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(forward_ad.unpack_dual(t).primal) if d is None else d
 
 
+def direct_tangents(*tensors):
+    """The primals and tangents of a kernel's inputs when the kernel's
+    wrapper should launch its tangent kernel itself: some input carries a
+    forward-AD tangent and none needs a reverse-mode graph.  A missing or
+    efficient-zero tangent comes back as dense zeros, every tangent
+    contiguous.  None otherwise (the wrapper's ``torch.autograd.Function``
+    then takes the inputs)."""
+    tans = [tangent(t) for t in tensors]
+    if all(d is None for d in tans):
+        return None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return None
+    prims = [forward_ad.unpack_dual(t).primal for t in tensors]
+    return prims, [torch.zeros_like(p) if d is None or d._is_zerotensor() else d.contiguous()
+                   for p, d in zip(prims, tans)]
+
+
 def _dense(a):
     if type(a) is torch.Tensor and a.is_floating_point() and tangent(a) is None:
         a = a.contiguous() if 0 in a.stride() else a

@@ -17,7 +17,7 @@ Differences from the JAX module:
   leading axes;
 * ``solve_k``/``solve_perturbations`` (a ``lax.scan`` per mode, ``vmap``-ed
   over modes) are :func:`eb_solve`: on a CUDA tensor the kernel ``eb_solve``
-  of ``csrc/boltzmann.cu``, one thread per (cosmology, mode) walking its
+  of ``csrc/boltzmann.cu``, one warp per (cosmology, mode) walking its
   mode's unpadded schedule in one launch per solve; on a CPU tensor
   :func:`eb_solve_plain`, a step loop batched over (cosmology, mode) on the
   lockstep-padded schedule (padded steps are exact no-ops: dlna = 0, TCA
@@ -30,7 +30,8 @@ Differences from the JAX module:
   (``_SolverTables``): the primal with the forward kernels, then one pass
   under forward AD on W·P rows (row (w, p) seeded with the p-th of the P
   differentiated fields among ω_b, ω_cdm, h, m_ncdm, N_ur and Y_He), whose
-  tangents are the Jacobian that its backward contracts.  A second
+  tangents are the Jacobian that its backward contracts.  That pass
+  launches only the tangent kernels, which give the primal too.  A second
   derivative through it (``create_graph=True``) raises (ROADMAP A8.2);
 * always float64; :class:`SolverProvider` casts its outputs to the dtype
   of the parameters it is given.
@@ -51,7 +52,7 @@ from torch.autograd import forward_ad
 
 from .. import resolve_device
 from . import _kernels
-from .dual import DenseTangents, tangent_or_zeros
+from .dual import DenseTangents, direct_tangents, tangent_or_zeros
 from .thermo import (
     CosmoParams, Background, Thermo, as_batch, background_tables, thermo_tables,
     gradient, interp, _const, _h0_mpc, F64,
@@ -673,7 +674,7 @@ def _eb_args(tab: EBTables, dsched: dict) -> list:
 
 
 def eb_solve_cuda(tab: EBTables, dsched: dict, nk: int) -> PerturbOut:
-    """Launch ``eb_solve``: one thread per (cosmology, mode), one launch for
+    """Launch ``eb_solve``: one warp per (cosmology, mode), one launch for
     every mode of the schedule ``dsched`` (:meth:`KernelSchedule.to`);
     outputs in the k grid's order (nk modes)."""
     nw, ng = _check_eb(tab, dsched)
@@ -705,27 +706,14 @@ def eb_solve_jvp_cuda(tab: EBTables, d_stacked, dsched: dict, nk: int):
 
 
 class _EBSolve(torch.autograd.Function):
-    """``eb_solve`` on the card: the forward kernel, and for forward AD
-    (``jvp``) the tangent kernel in the tables' tangent.  No reverse mode:
-    :class:`EBSolver` takes the gradient on the card by forward mode."""
+    """``eb_solve`` on the card for tables that require grad: the forward
+    kernel, and no reverse mode (:class:`EBSolver` takes the gradient on
+    the card by forward mode, through the tangent kernel that
+    :func:`eb_solve` launches for dual tables)."""
 
     @staticmethod
-    def forward(stacked, lna, dlna, dsched, nk):
+    def forward(ctx, stacked, lna, dlna, dsched, nk):
         return tuple(eb_solve_cuda(EBTables(lna, dlna, None, stacked), dsched, nk))
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        stacked, lna, dlna, dsched, nk = inputs
-        ctx.save_for_forward(stacked, lna, dlna)
-        ctx.dsched, ctx.nk = dsched, nk
-
-    @staticmethod
-    def jvp(ctx, d_stacked, *_):
-        stacked, lna, dlna = ctx.saved_tensors
-        d_stacked = torch.zeros_like(stacked) if d_stacked is None else d_stacked
-        _, tangents = eb_solve_jvp_cuda(EBTables(lna, dlna, None, stacked), d_stacked,
-                                        ctx.dsched, ctx.nk)
-        return tuple(tangents)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -737,12 +725,20 @@ def eb_solve(tab: EBTables, k_mpc, buckets, dsched: dict | None = None) -> Pertu
     kernel on a CUDA tensor (``dsched``: the flattened schedule on the
     device, made now when None; forward AD through the tangent kernel, no
     reverse mode), the plain step loop per bucket on a CPU tensor.  Outputs
-    (W, nz, nk) and (W, nk) in the order of ``k_mpc``."""
+    (W, nz, nk) and (W, nk) in the order of ``k_mpc``.  Under forward AD on
+    the card the tangent kernel alone runs: it gives the primal too
+    (``dual.direct_tangents``)."""
     st = tab.stacked
     nk = len(k_mpc)
     if st.is_cuda:
         if dsched is None:
             dsched = kernel_schedule(k_mpc, buckets).to(st.device)
+        dual = direct_tangents(st)
+        if dual is not None:
+            (prim,), (d_st,) = dual
+            lna, dlna = (forward_ad.unpack_dual(t).primal for t in (tab.lna, tab.dlna))
+            out, dout = eb_solve_jvp_cuda(EBTables(lna, dlna, None, prim), d_st, dsched, nk)
+            return PerturbOut(*(forward_ad.make_dual(o, d) for o, d in zip(out, dout)))
         return PerturbOut(*_EBSolve.apply(st, tab.lna, tab.dlna, dsched, nk))
     nw = st.shape[0]
     nz = buckets[0][3].shape[0]
@@ -950,7 +946,8 @@ class EBSolver:
         """The Jacobian of :meth:`table_part` in the fields ``names`` (P of
         ``TABLE_FIELDS``): one pass under forward AD on the W·P rows of
         :func:`tangent_rows` (on the card: one launch of each tangent
-        kernel).  One (W, P, ...) tensor an output."""
+        kernel, which gives the primal too).  One (W, P, ...) tensor an
+        output."""
         nw, p = par.h.shape[0], len(names)
         with forward_ad.dual_level(), DenseTangents():
             out = self.table_part(tangent_rows(par, names))

@@ -33,9 +33,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 from .. import resolve_device
 from . import _kernels
+from .dual import direct_tangents
 
 # ---------------------------------------------------------------------------
 # physical constants (SI)
@@ -443,25 +445,14 @@ def recomb_scan_jvp_cuda(inputs, tangents, dlna: float):
 
 
 class _RecombScan(torch.autograd.Function):
-    """``recomb_scan`` on the card: the forward kernel, and for forward AD
-    (``jvp``) the tangent kernel.  No reverse mode: the solver's gradient on
-    the card is forward-mode (``einstein_boltzmann.EBSolver``)."""
+    """``recomb_scan`` on the card for inputs that require grad: the forward
+    kernel, and no reverse mode (the solver's gradient on the card is
+    forward-mode, through the tangent kernel that :func:`recomb_scan`
+    launches for dual inputs; ``einstein_boltzmann.EBSolver``)."""
 
     @staticmethod
-    def forward(tg, nh, hs, x_saha, he_term, f_he, dlna):
+    def forward(ctx, tg, nh, hs, x_saha, he_term, f_he, dlna):
         return recomb_scan_cuda(tg, nh, hs, x_saha, he_term, f_he, dlna)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_forward(*inputs[:6])
-        ctx.dlna = inputs[6]
-
-    @staticmethod
-    def jvp(ctx, *tangents):
-        ins = ctx.saved_tensors
-        tans = [torch.zeros_like(x) if d is None else d.contiguous()
-                for x, d in zip(ins, tangents[:6])]
-        return recomb_scan_jvp_cuda(ins, tans, ctx.dlna)[1]
 
     @staticmethod
     def backward(ctx, *grads):
@@ -471,10 +462,15 @@ class _RecombScan(torch.autograd.Function):
 def recomb_scan(tg, nh, hs, x_saha, he_term, f_he, dlna: float):
     """The Peebles/T_M recurrence: the CUDA kernel on a CUDA tensor (forward
     AD through its tangent kernel, no reverse mode), the plain step loop on
-    a CPU tensor."""
+    a CPU tensor.  Under forward AD on the card the tangent kernel alone
+    runs: it gives the primal too (``dual.direct_tangents``)."""
     if not tg.is_cuda:
         return recomb_scan_plain(tg, nh, hs, x_saha, he_term, f_he, dlna)
     args = [t.contiguous() for t in (tg, nh, hs, x_saha, he_term, f_he)]
+    dual = direct_tangents(*args)
+    if dual is not None:
+        outs, douts = recomb_scan_jvp_cuda(*dual, float(dlna))
+        return tuple(forward_ad.make_dual(o, d) for o, d in zip(outs, douts))
     return _RecombScan.apply(*args, float(dlna))
 
 

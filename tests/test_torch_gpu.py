@@ -135,7 +135,8 @@ def test_recomb_scan_jvp_matches_plain_on_card(cuda):
     under forward AD) against forward AD of the plain step loop, three
     cosmologies on a 512-point grid, a seeded tangent in the six table
     fields: tangents within 1e-9 of their largest |value|; one launch of
-    each kernel (the forward kernel gives the primal)."""
+    the tangent kernel and none of the forward kernel (the tangent kernel
+    gives the primal too)."""
     from torch.autograd import forward_ad
     from eftpipe_tpu_torch.boltzmann import _kernels, thermo
     from eftpipe_tpu_torch.boltzmann.dual import DenseTangents
@@ -153,7 +154,7 @@ def test_recomb_scan_jvp_matches_plain_on_card(cuda):
                      - forward_ad.unpack_dual(bg.lna).primal[0])
         _kernels.reset_launch_counts()
         got = [forward_ad.unpack_dual(o) for o in thermo.recomb_scan(*ins, dlna)]
-        assert _kernels.LAUNCHES == dict(eb_solve=0, recomb_scan=1, eb_solve_jvp=0,
+        assert _kernels.LAUNCHES == dict(eb_solve=0, recomb_scan=0, eb_solve_jvp=0,
                                          recomb_scan_jvp=1)
         ref = [forward_ad.unpack_dual(o) for o in thermo.recomb_scan_plain(*ins, dlna)]
     for g, r in zip(got, ref):
@@ -164,7 +165,7 @@ def test_recomb_scan_jvp_matches_plain_on_card(cuda):
 
 @pytest.mark.gpu
 def test_eb_solve_matches_plain_on_card(cuda):
-    """``eb_solve`` (one thread per (cosmology, mode), each mode's unpadded
+    """``eb_solve`` (one warp per (cosmology, mode), each mode's unpadded
     schedule) against the plain step loop on the padded buckets: two
     cosmologies, five modes on coarse schedules with TCA and post-TCA steps,
     δ_m, δ_cb and ζ_ini within 1e-9 of their largest |value|; one launch."""
@@ -199,7 +200,80 @@ def test_eb_solve_matches_plain_on_card(cuda):
         assert float((g - r).abs().max() / r.abs().max()) <= 1e-9, name
 
 
-def cut_buckets(eb, thermo, par, ks, n_grid=2048, n_fine=4096):
+# seven modes: an odd number of warps at odd W, no multiple of the warps a block
+RAGGED_K = np.array([1e-4, 5e-4, 2e-3, 5e-3, 0.01, 0.03, 0.08])
+
+
+def ragged_solve_inputs(cuda, nw):
+    """``nw`` seeded cosmologies' tables on the card and coarse lockstep
+    buckets of ``RAGGED_K`` (built on the envelope of their tables): seven
+    modes, whose tight coupling ends at different steps."""
+    from eftpipe_tpu_torch.boltzmann import einstein_boltzmann as eb, thermo
+
+    rng = np.random.default_rng(nw)
+    par = eb.stack_params([thermo.CosmoParams(
+        omega_b=0.0224 * (1 + 0.05 * rng.standard_normal()),
+        omega_cdm=0.12 * (1 + 0.1 * rng.standard_normal()), h=0.68 + 0.03 * rng.standard_normal(),
+        ln10As=3.044, ns=0.9649, m_ncdm=0.02 * rng.random(), deg_ncdm=3.0)
+        for _ in range(nw)], cuda)
+    with torch.no_grad():
+        tab, buckets, _ = cut_buckets(eb, thermo, par, RAGGED_K, phase_acc=0.5, dlna_max=0.1)
+    return tab, buckets
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw", [1, 3, 5])
+def test_eb_solve_ragged_batches_match_plain_on_card(cuda, nw):
+    """``eb_solve`` at ragged shapes: W = 1, 3, 5 cosmologies, seven modes
+    (W·7 warps, no multiple of the two warps a block), the TCA switch at a
+    different step in each schedule; δ_m, δ_cb and ζ_ini within 1e-9 of
+    their largest |value| of the plain step loop; one launch."""
+    from eftpipe_tpu_torch.boltzmann import _kernels, einstein_boltzmann as eb
+
+    tab, buckets = ragged_solve_inputs(cuda, nw)
+    switches = [int(np.argmin(m[j])) for _, _, m, _ in buckets for j in range(m.shape[0])]
+    assert len(set(switches)) > 1 and min(switches) > 0
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = eb.eb_solve(tab, RAGGED_K, buckets)
+    assert _kernels.LAUNCHES == dict(eb_solve=1, recomb_scan=0, eb_solve_jvp=0, recomb_scan_jvp=0)
+    ref = [eb.eb_solve_plain(tab, RAGGED_K[b[0]], b[1], b[2], b[3]) for b in buckets]
+    sel = torch.as_tensor(np.concatenate([b[0] for b in buckets]), device=cuda)
+    for name in ("delta_m", "delta_cb", "zeta_ini"):
+        r = torch.cat([getattr(o, name) for o in ref], -1)
+        g = getattr(got, name)[..., sel]
+        assert torch.isfinite(g).all() and g.shape[0] == nw, name
+        assert float((g - r).abs().max() / r.abs().max()) <= 1e-9, name
+
+
+@pytest.mark.gpu
+def test_eb_solve_is_repeatable_and_batch_invariant_on_card(cuda):
+    """``eb_solve`` gives the same bits on a second call, and a cosmology
+    gives the same bits alone (W=1) as in slot 2 of W=5 (its warps read only
+    its own table; the metric's sums keep one order); so does the tangent
+    kernel, value and tangent."""
+    from eftpipe_tpu_torch.boltzmann import einstein_boltzmann as eb
+
+    tab, buckets = ragged_solve_inputs(cuda, 5)
+    dsched = eb.kernel_schedule(RAGGED_K, buckets).to(cuda)
+    nk = RAGGED_K.size
+    alone = eb.EBTables(tab.lna, tab.dlna, None, tab.stacked[2:3].contiguous())
+    names = ("delta_m", "delta_cb", "zeta_ini")
+    batch = eb.eb_solve_cuda(tab, dsched, nk)
+    again = eb.eb_solve_cuda(tab, dsched, nk)
+    one = eb.eb_solve_cuda(alone, dsched, nk)
+    d_st = torch.as_tensor(np.random.default_rng(7).standard_normal(tuple(tab.stacked.shape)),
+                           device=cuda) * tab.stacked
+    jb = eb.eb_solve_jvp_cuda(tab, d_st, dsched, nk)
+    j1 = eb.eb_solve_jvp_cuda(alone, d_st[2:3].contiguous(), dsched, nk)
+    for name in names:
+        assert torch.equal(getattr(batch, name), getattr(again, name)), name
+        assert torch.equal(getattr(one, name)[0], getattr(batch, name)[2]), name
+        for part in (0, 1):
+            assert torch.equal(getattr(j1[part], name)[0], getattr(jb[part], name)[2]), name
+
+
+def cut_buckets(eb, thermo, par, ks, n_grid=2048, n_fine=4096, phase_acc=0.9, dlna_max=0.2):
     """Tables of ``par`` and coarse lockstep buckets of the modes ``ks`` (TCA
     and post-TCA steps) built from them."""
     bg = thermo.background_tables(par, n_grid=n_grid)
@@ -207,7 +281,8 @@ def cut_buckets(eb, thermo, par, ks, n_grid=2048, n_fine=4096):
     tab = eb.make_tables(par, bg, th)
     hb, ht = eb.host_tables(bg, th)
     lna_out = np.unique(np.log(1.0 / (1.0 + np.array([1.0, 0.5, 0.0]))))
-    raw, rm = eb.build_schedule(ks, hb, ht, lna_out, pad=False, phase_acc=0.9, dlna_max=0.2)
+    raw, rm = eb.build_schedule(ks, hb, ht, lna_out, pad=False, phase_acc=phase_acc,
+                                dlna_max=dlna_max)
     buckets = []
     for idx in eb.bucket_indices([g.size for g in raw]):
         grids = eb._pad_grids([raw[i] for i in idx])
@@ -223,7 +298,9 @@ def test_eb_solve_jvp_matches_plain_on_card(cuda):
     forward AD of the plain step loop on the padded buckets: two
     cosmologies, three modes on coarse schedules with TCA and post-TCA steps,
     a seeded tangent in the six table fields; the tangents of δ_m, δ_cb and
-    ζ_ini within 1e-9 of their largest |value|; one launch of each kernel."""
+    ζ_ini within 1e-9 of their largest |value|; one launch of the tangent
+    kernel and none of the forward kernel (the tangent kernel gives the
+    primal too)."""
     from torch.autograd import forward_ad
     from eftpipe_tpu_torch.boltzmann import _kernels, einstein_boltzmann as eb, thermo
     from eftpipe_tpu_torch.boltzmann.dual import DenseTangents
@@ -241,7 +318,7 @@ def test_eb_solve_jvp_matches_plain_on_card(cuda):
         tab = eb.make_tables(dpar, bg, thermo.thermo_tables(dpar, bg, n_fine=4096))
         _kernels.reset_launch_counts()
         got = eb.eb_solve(tab, ks, buckets)
-        assert _kernels.LAUNCHES["eb_solve"] == 1 and _kernels.LAUNCHES["eb_solve_jvp"] == 1
+        assert _kernels.LAUNCHES["eb_solve"] == 0 and _kernels.LAUNCHES["eb_solve_jvp"] == 1
         ref = [eb.eb_solve_plain(tab, ks[b[0]], b[1], b[2], b[3]) for b in buckets]
         sel = torch.as_tensor(np.concatenate([b[0] for b in buckets]), device=cuda)
         for name in ("delta_m", "delta_cb", "zeta_ini"):
@@ -259,7 +336,9 @@ def test_solver_gradient_on_card_matches_plain_autograd(cuda):
     the tables on a 512-point grid with the recombination on it): a seeded
     loss of every output of ``EBSolver`` in the six table fields, ln10As and
     n_s at W=2, rtol 1e-8; the card's outputs with the gradient equal those
-    without it bit for bit."""
+    without it bit for bit; the value and gradient launches each of the four
+    kernels once (the primal pass the forward kernels, the tangent pass only
+    the tangent kernels)."""
     import functools
 
     from eftpipe_tpu_torch.boltzmann import _kernels, einstein_boltzmann as eb, thermo
@@ -302,14 +381,15 @@ def test_solver_gradient_on_card_matches_plain_autograd(cuda):
             loss = sum((torch.as_tensor(w, device=device) * o).sum()
                        for w, o in zip(weights, outs))
             grads = torch.autograd.grad(loss, [leaves[k] for k in fields])
+            launches = dict(_kernels.LAUNCHES)
             with torch.no_grad():
                 ref = solver(thermo.CosmoParams(**leaves, deg_ncdm=3.0))
-            return outs, ref, [g.cpu() for g in grads]
+            return outs, ref, [g.cpu() for g in grads], launches
 
-        _, _, want = value_and_grad("cpu")
+        _, _, want, _ = value_and_grad("cpu")
         _kernels.reset_launch_counts()
-        outs, ref, got = value_and_grad(cuda)
-    assert _kernels.LAUNCHES["eb_solve_jvp"] == 1 and _kernels.LAUNCHES["recomb_scan_jvp"] == 1
+        outs, ref, got, launches = value_and_grad(cuda)
+    assert launches == dict(eb_solve=1, recomb_scan=1, eb_solve_jvp=1, recomb_scan_jvp=1)
     for o, r in zip(outs, [ref.pk, ref.pk_cb, ref.sigma8, ref.h_of_z, ref.da_of_z,
                            ref.rs_drag]):
         assert torch.equal(o.detach(), r)
