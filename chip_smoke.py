@@ -139,8 +139,33 @@ Phases, each printing one JSON line:
    at W=1 and 4 against seconds per ``logp``, and the tangent kernels alone
    on the W·P rows of a W=4 value and gradient beside the forward kernels
    on the same rows, with their bounds, ``us_per_step_longest`` and the
-   warp step model of the provider's longest mode; (f) ``laplace_cov()`` raises
-   ``NotImplementedError`` naming A8.2, its message unchanged.
+   warp step model of the provider's longest mode.
+10c. ``solver_hessian`` — the solver's second derivative on the card (the
+   hyper-dual kernels ``recomb_scan_jvp2`` and ``eb_solve_jvp2``, the same
+   source on a value, two first-order parts and a mixed part, driven by
+   ``EBSolver.table_hessians`` from the double backward of
+   ``_SolverTables``): (a) ``recomb_scan_jvp2`` against
+   ``recomb_scan_plain`` on hyper-dual operands (on the host), two box
+   cosmologies' pair rows in (ω_cdm, h) on a 1024-point grid, and
+   ``eb_solve_jvp2`` against ``eb_solve_plain`` on hyper-dual tables, the
+   longest mode of the 4-D recipe cut to 500 steps (TCA and after), seeded
+   parts: every part ≤ 1e-9 of its output's largest |part|, the value and
+   the first-order part ≤ 1e-12 from the forward and the tangent kernels';
+   (b) ``Analysis._hessian(θ₀)`` of the float64 LRG analysis on the
+   ``solver`` provider, each row against central differences of its ∇logp
+   (two steps, one batch; ≤ 1e-4 of the row's largest |entry| at the better
+   step), symmetric to 1e-8; (c) the solver's outputs, ``logp`` and the
+   gradient of a seeded loss of the solver's outputs with the gradient's
+   graph and without it, bit for bit, ∇logp within 1e-12 (torch's matmul
+   takes another route in the EFT path's backward when the gradient
+   requires grad), the Hessian again bit for bit, a value and
+   gradient's launches (one of each of the first four kernels, none of the
+   second-order ones), one Hessian's (one of each of the six); (d)
+   ``laplace_cov()`` of the float64 and float32 analyses finite and
+   positive-definite, and ``run_mcmc(sampler="hmc", init="laplace")`` on the
+   float32 one (2 chains, 1 step) finite; (e) seconds a Hessian, the jet
+   pass alone, the two kernels on the Hessian's own inputs (W·Q = 15 rows)
+   beside the forward kernels on the same rows, their bounds.
 11. ``training`` — the shipped P(k) artifact retrained at full width by
    ``eftpipe_tpu_torch/tools/train_solver_emulator.py``'s library functions
    (``--n 512 --inner-frac 0.35 --degree 8 --degree-in 7 --ncomp 96``: 512
@@ -182,7 +207,8 @@ the ``against_build`` line).
 14. ``kernels`` line (launches by path, ``training`` and ``mesh`` among
    them; every kernel instance, float32 and float64 ``qf_real`` and
    ``cf_half``, ``eb_solve`` and ``recomb_scan``, ``eb_solve_jvp`` and
-   ``recomb_scan_jvp``, must appear), the card's
+   ``recomb_scan_jvp``, ``eb_solve_jvp2`` and ``recomb_scan_jvp2``, must
+   appear), the card's
    ``nvidia-smi`` line, and the final ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises: the exit code is then non-zero and no final line is
@@ -217,7 +243,7 @@ from eftpipe_tpu_torch.boltzmann.emulator import (DEFAULT_BOUNDS, DEFAULT_PK_ART
                                                    EmulatorProvider, PkEmulator,
                                                    SolverEmulatorProvider, TransferEmulator,
                                                    train_transfer_emulator)
-from eftpipe_tpu_torch.boltzmann import _kernels as bk, einstein_boltzmann as eb, thermo
+from eftpipe_tpu_torch.boltzmann import _kernels as bk, einstein_boltzmann as eb, jet, thermo
 from eftpipe_tpu_torch.boltzmann.dual import DenseTangents, tangent_or_zeros
 from eftpipe_tpu_torch.likelihood.parambasis import WestCoastBasis
 from eftpipe_tpu_torch.models.ap import lcdm_da, lcdm_hubble
@@ -1584,10 +1610,16 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-def eb_bound(mode_steps: int, longest: int, nbytes: int, dual: bool = False) -> dict:
+def ops_factor(dual: bool, hyper: bool) -> float:
+    return HYPER_OPS_FACTOR if hyper else (DUAL_OPS_FACTOR if dual else 1.0)
+
+
+def eb_bound(mode_steps: int, longest: int, nbytes: int, dual: bool = False,
+             hyper: bool = False) -> dict:
     """``dual``: the tangent kernel's (``DUAL_OPS_FACTOR`` times the
-    operations; ``nbytes`` given for it)."""
-    ops = mode_steps * EB_OPS_PER_STEP * (DUAL_OPS_FACTOR if dual else 1.0)
+    operations; ``nbytes`` given for it); ``hyper``: the second-order
+    kernel's (``HYPER_OPS_FACTOR``)."""
+    ops = mode_steps * EB_OPS_PER_STEP * ops_factor(dual, hyper)
     t_ops = ops / FMA_FLOPS[torch.float64] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -1619,23 +1651,26 @@ def warp_step_model(sched, dual: bool = False) -> dict:
                 model_us_per_step=ms * 1e3 / max(tca + post, 1))
 
 
-def recomb_bound(nw: int, n: int, dual: bool = False) -> dict:
-    ops = nw * n * RECOMB_OPS_PER_STEP * (DUAL_OPS_FACTOR if dual else 1.0)
+def recomb_bound(nw: int, n: int, dual: bool = False, hyper: bool = False) -> dict:
+    ops = nw * n * RECOMB_OPS_PER_STEP * ops_factor(dual, hyper)
     t_ops = ops / FMA_FLOPS[torch.float64] * 1e3
     # five (W, n) inputs and f_He in, three (W, n) out; each with its tangent
-    nbytes = (2 if dual else 1) * 8 * (8 * nw * n + nw)
+    # (its three parts)
+    nbytes = (4 if hyper else (2 if dual else 1)) * 8 * (8 * nw * n + nw)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                 ops=ops, bytes_min=nbytes, critical_path_steps=n,
                 critical_path_model_ms=ops / nw / SM_CLOCK_HZ * 1e3)
 
 
-def eb_bytes(tab, dsched: dict, nz: int, nk: int, dual: bool = False) -> int:
-    """The tables (and their tangent), the schedule, the outputs (and
-    theirs)."""
+def eb_bytes(tab, dsched: dict, nz: int, nk: int, dual: bool = False,
+             hyper: bool = False) -> int:
+    """The tables (and their tangent, or their three parts), the schedule,
+    the outputs (and theirs)."""
     nw = tab.stacked.shape[0]
     sched = sum(t.numel() * t.element_size() for t in dsched.values())
-    return (2 if dual else 1) * (tab.stacked.numel() * 8 + 8 * (2 * nw * nz * nk + nw * nk)) + sched
+    return ((4 if hyper else (2 if dual else 1))
+            * (tab.stacked.numel() * 8 + 8 * (2 * nw * nz * nk + nw * nk)) + sched)
 
 
 class AgainstSolver:
@@ -1948,30 +1983,40 @@ def solver_phase(lines: list, out_dir=None, against=None) -> dict:
     return dict(by_path=by_path, qf_shapes=qf_shapes, out=out, solver=solver)
 
 
-def solver_rows(out: dict, grad: dict, by_path: dict) -> list:
+def solver_rows(out: dict, grad: dict, hess: dict, by_path: dict) -> list:
     """The kernels line's rows of the solver's kernels: ``eb_solve`` and
     ``recomb_scan`` with their time and bound at the main path's shape (the
     provider's W=4 solve) and their plain versions' time at the reduced
     comparison shape of the solver phase's (a)/(b); their tangent kernels
     with their time and bound at the shape of a W=4 value and gradient of
     the ``solver_grad`` phase's analysis (W·P = 8 rows) and the plain
-    versions' time under forward AD at the comparison shape of its (a)/(b)."""
-    t4, g4 = out["times"][4], grad["times"][4]
+    versions' time under forward AD at the comparison shape of its (a)/(b);
+    their second-order kernels with their time and bound at the rows of one
+    Hessian of that analysis (W·Q: W = ndim copies of θ₀, Q = P(P+1)/2) and
+    the plain versions' time on hyper-dual operands at the comparison shape
+    of ``solver_hessian``'s (a)."""
+    t4, g4, h5 = out["times"][4], grad["times"][4], hess["hessian"]["times"]
     rows = []
     for name, check, bnd, ms in (
             ("eb_solve", out["eb_check"], t4["eb_solve"], t4["eb_solve_ms"]),
             ("recomb_scan", out["recomb_check"], t4["recomb_scan"], t4["recomb_scan_ms"]),
             ("eb_solve_jvp", grad["eb_check"], g4["eb_solve_jvp"], g4["eb_solve_jvp_ms"]),
             ("recomb_scan_jvp", grad["recomb_check"], g4["recomb_scan_jvp"],
-             g4["recomb_scan_jvp_ms"])):
+             g4["recomb_scan_jvp_ms"]),
+            ("eb_solve_jvp2", hess["eb_check"], h5["eb_solve_jvp2"], h5["eb_solve_jvp2_ms"]),
+            ("recomb_scan_jvp2", hess["recomb_check"], h5["recomb_scan_jvp2"],
+             h5["recomb_scan_jvp2_ms"])):
         per_path = {p: c.get(name, 0) for p, c in by_path.items()} | {"mesh": 0}
-        shape = "W=4" if name in SOLVER_REPLACES else f"W*P={g4['rows']}"
+        shape = ("W=4" if name in SOLVER_REPLACES else
+                 f"W*P={g4['rows']}" if name in SOLVER_JVP_REPLACES else f"W*Q={h5['rows']}")
         rows.append(dict(
             name=f"{name}[f64,{shape}]", route="cuda", source=SOLVER_SOURCE,
-            replaces=(SOLVER_REPLACES | SOLVER_JVP_REPLACES)[name], launches=sum(per_path.values()),
+            replaces=(SOLVER_REPLACES | SOLVER_JVP_REPLACES | SOLVER_JVP2_REPLACES)[name],
+            launches=sum(per_path.values()),
             launches_by_path=per_path, max_abs_err=check["max_abs_err"], ms=ms,
             plain_ms=check["plain_ms"], ms_at_plain_shape=check["ms"],
-            plain_shape={k: check[k] for k in ("W", "n", "modes", "mode_steps") if k in check},
+            plain_shape={k: check[k] for k in ("W", "rows", "n", "modes", "mode_steps")
+                         if k in check},
             bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None))
     return rows
 
@@ -2278,21 +2323,6 @@ def grad_times(an, solver, against=None) -> tuple[dict, dict, dict]:
     return times, dict(bk.LAUNCHES), dict(qf.LAUNCHES_BY_SHAPE)
 
 
-def grad_laplace(an) -> tuple[dict, dict, dict]:
-    """(f): ``laplace_cov()`` on the card raises the solver's A8.2 error,
-    its message unchanged (its forward, values and tangents, runs first)."""
-    bk.reset_launch_counts()
-    qf.reset_launch_counts()
-    try:
-        an.laplace_cov()
-        raised, message = None, None
-    except NotImplementedError as e:
-        raised, message = type(e).__name__, str(e)
-    return (dict(raised=raised, message_unchanged=message == eb.A82,
-                 names_a8_2="A8.2" in (message or "")),
-            dict(bk.LAUNCHES), dict(qf.LAUNCHES_BY_SHAPE))
-
-
 def solver_grad_phase(solver, lines: list, against=None) -> dict:
     """Phase 10b: the solver's gradient on the card (``solver_grad`` line).
     ``solver``: the solver phase's 4-D recipe solver, for (b); ``against``:
@@ -2310,7 +2340,6 @@ def solver_grad_phase(solver, lines: list, against=None) -> dict:
     out["hmc"], by_path["solver_hmc"], qf_paths["solver_hmc"] = grad_hmc(an32)
     out["times"], by_path["solver_grad_times"], qf_paths["solver_grad_times"] = grad_times(
         an64, an64.providers["LRG"].solver, against)
-    out["laplace"], by_path["solver_laplace"], qf_paths["solver_laplace"] = grad_laplace(an32)
     out["nvidia_smi"] = nvidia_smi_line()
     out["seconds"] = time.perf_counter() - t_phase
     lines.append(emit("solver_grad", **out))
@@ -2336,11 +2365,361 @@ def solver_grad_phase(solver, lines: list, against=None) -> dict:
         failed.append(f"launches of one value and gradient {la}")
     if not out["hmc"]["finite"]:
         failed.append(f"hmc {out['hmc']}")
-    if not (out["laplace"]["raised"] == "NotImplementedError"
-            and out["laplace"]["message_unchanged"]):
-        failed.append(f"laplace {out['laplace']}")
     if failed:
         raise SystemExit(f"chip_smoke: solver_grad: failed {failed}")
+    return dict(by_path=by_path, qf_paths=qf_paths, out=out, an64=an64, an32=an32)
+
+
+# ---------------------------------------------------------------------------
+# the solver's second derivative on the card (phase 10c, solver_hessian)
+# ---------------------------------------------------------------------------
+# the second-order kernels' operations: the forward kernels' counts times the
+# mean cost of one operation of their source on a hyper-dual number (a sum,
+# or a product by a number: 4 operations; a product of two: 9; a quotient:
+# ~11), with the Dual's mix of them (DUAL_OPS_FACTOR 2.3: ~70 % at 2, the
+# rest at 3-4): ~5.5
+HYPER_OPS_FACTOR = 5.5
+HESS_PART_BUDGET = 1e-9      # (a): of the largest |part| of each output
+HESS_LOWER_BUDGET = 1e-12    # (a): value and first-order parts against the forward / Dual kernels
+HESS_FD_BUDGET = 1e-4        # (b): each entry against central differences of ∇logp, of its row's max
+HESS_SYM_BUDGET = 1e-8       # (b): |H - H^T| of max |H|
+# (c): ∇logp with the gradient's graph against without it, of its largest
+# |component|: the EFT path's backward differs in rounding, for torch's
+# matmul takes another route when the gradient requires grad (the solver's
+# own part is held bit for bit)
+HESS_GRAPH_GRAD_BUDGET = 1e-12
+HESS_FIELDS = ("omega_cdm", "h")  # (a): the pair rows' fields
+SOLVER_JVP2_REPLACES = {
+    "recomb_scan_jvp2": "eftpipe_tpu/boltzmann/thermo.py:317 (its second derivative: "
+                        "jax.hessian through _thermo_on_grid's lax.scan, "
+                        "eftpipe_tpu/api/orchestrate.py:905; no Pallas)",
+    "eb_solve_jvp2": "eftpipe_tpu/boltzmann/einstein_boltzmann.py:563 (its second derivative: "
+                     "jax.hessian through solve_k's lax.scan, "
+                     "eftpipe_tpu/api/orchestrate.py:905; no Pallas)",
+}
+
+
+def pair_jet(par):
+    """The pair rows of ``par`` in ``HESS_FIELDS``: (every field's rows, the
+    jet of those fields)."""
+    values = {n: getattr(par, n) for n in thermo.CosmoParams._fields[:-1]}
+    return jet.pair_rows(values, HESS_FIELDS, par.h)
+
+
+def part_errs(got, want) -> list:
+    """Each part's largest |Δ| over its largest |value|, the largest |Δ|."""
+    errs = [max(rel_err(g, w) for g, w in zip(got[i], want[i])) for i in range(4)]
+    return errs, max(float((g - w).abs().max()) for i in range(4) for g, w in zip(got[i], want[i]))
+
+
+def hess_check_recomb(nw: int = 2, n: int = 1024) -> dict:
+    """(a): ``recomb_scan_jvp2`` against ``recomb_scan_plain`` on hyper-dual
+    operands (on the host): ``nw`` seeded box cosmologies, their pair rows in
+    ``HESS_FIELDS``, the inputs' jets those of the stage before the
+    recurrence on an ``n``-point grid (``jet.jet_call``, on the card); the
+    value and the first-order part against the forward and tangent kernels
+    on the same rows."""
+    par = box_batch(box_draws(nw, seed=31))
+    rows, pj = pair_jet(par)
+    base = thermo.CosmoParams(**rows, deg_ncdm=par.deg_ncdm)
+
+    def stage(ocdm, h):
+        p = base._replace(omega_cdm=ocdm, h=h)
+        return thermo.recomb_inputs(p, thermo.background_tables(p, n_grid=n))
+
+    with DenseTangents():
+        ins = jet.jet_call(stage, pj)
+    ins = jet.Jet(*(tuple(t.contiguous() for t in p) for p in ins))
+    dlna = thermo.scan_step(thermo.background_tables(base, n_grid=n))
+    got, ms = timed(lambda: thermo.recomb_scan_jvp2_cuda(ins, dlna), warmup=1)
+    fwd = thermo.recomb_scan_cuda(*ins.v, dlna)
+    _, dual = thermo.recomb_scan_jvp_cuda(list(ins.v), list(ins.a), dlna)
+    host = jet.Jet(*(tuple(t.cpu() for t in p) for p in ins))
+    t0 = time.perf_counter()
+    want = thermo.recomb_scan_jvp2_plain(host, dlna)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want = jet.Jet(*(tuple(t.cuda() for t in p) for p in want))
+    errs, abs_err = part_errs(got, want)
+    row = dict(W=nw, rows=len(rows["h"]), n=n, fields=list(HESS_FIELDS),
+               part_err=dict(zip(("value", "p", "q", "pq"), errs)), budget=HESS_PART_BUDGET,
+               value_err=max(float(((g - f).abs() / f.abs()).max()) for g, f in zip(got.v, fwd)),
+               first_order_err=max(rel_err(g, d) for g, d in zip(got.a, dual)),
+               lower_budget=HESS_LOWER_BUDGET, ms=ms, plain_ms=plain_ms,
+               plain="recomb_scan_plain on jet.HyperDual operands, the inputs copied to the host",
+               max_abs_err=abs_err,
+               finite=all(bool(torch.isfinite(t).all()) for p in want for t in p))
+    row.update(recomb_bound(len(rows["h"]), n, hyper=True))
+    return row
+
+
+def hess_check_eb(solver, nw: int = 1, cut: int = 500) -> dict:
+    """(a): ``eb_solve_jvp2`` against ``eb_solve_plain`` on hyper-dual
+    tables (on the host): ``nw`` seeded box cosmologies' tables, seeded parts
+    (relative 1e-2, 2e-2 and 1e-3 of each table entry), the longest mode of
+    the 4-D recipe cut to its first ``cut`` steps (TCA and after: the plain
+    loop on hyper-dual operands takes ~20 ms a step on the host); the value
+    and the first-order part against the forward and tangent kernels."""
+    par = box_batch(box_draws(nw, seed=32))
+    with torch.no_grad():
+        _, _, tab = solver.tables(par)
+    buckets = check_buckets(solver, cut, nbuckets=0)
+    mcut = buckets[-1][2]
+    sel = torch.as_tensor(np.concatenate([b[0] for b in buckets]), device="cuda")
+    k = solver.k_mpc
+    dsched = eb.kernel_schedule(k, buckets).to("cuda")
+    rng = np.random.default_rng(33)
+    st = tab.stacked
+    parts = tuple(sc * st * torch.as_tensor(rng.standard_normal(tuple(st.shape)), device="cuda")
+                  for sc in (1e-2, 2e-2, 1e-3))
+    got, ms = timed(lambda: eb.eb_solve_jvp2_cuda(tab, parts, dsched, len(k)), warmup=1)
+    fwd = eb.eb_solve_cuda(tab, dsched, len(k))
+    _, dual = eb.eb_solve_jvp_cuda(tab, parts[0].contiguous(), dsched, len(k))
+    host = eb.EBTables(tab.lna.cpu(), tab.dlna.cpu(), None, st.cpu())
+    t0 = time.perf_counter()
+    want = eb.eb_solve_jvp2(host, tuple(p.cpu() for p in parts), k[sel.cpu().numpy()],
+                            [(np.arange(b[0].size), *b[1:]) for b in buckets])
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = jet.Jet(*(tuple(t[..., sel] for t in p) for p in got))
+    want = jet.Jet(*(tuple(t.cuda() for t in p) for p in want))
+    errs, abs_err = part_errs(got, want)
+    steps = int(eb.kernel_schedule(k, buckets).steps.sum())
+    return dict(W=nw, modes=int(sel.numel()), mode_steps=steps * nw,
+                cut_mode_tca_steps=int(mcut[0, :-1].sum()),
+                cut_mode_post_tca_steps=int((~mcut[0, :-1]).sum()),
+                part_err=dict(zip(("value", "p", "q", "pq"), errs)), budget=HESS_PART_BUDGET,
+                value_err=max(rel_err(g, f[..., sel]) for g, f in zip(got.v, fwd)),
+                first_order_err=max(rel_err(g, d[..., sel]) for g, d in zip(got.a, dual)),
+                lower_budget=HESS_LOWER_BUDGET, ms=ms, plain_ms=plain_ms,
+                plain="eb_solve_plain on jet.HyperDual tables, copied to the host",
+                max_abs_err=abs_err,
+                finite=all(bool(torch.isfinite(t).all()) for p in want for t in p))
+
+
+class KernelRecorder:
+    """Keeps the arguments of each call of a module's function (the
+    second-order kernels' wrappers), for timing them again on the path's
+    own inputs."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+        self.fn = getattr(module, name)
+
+    def __enter__(self):
+        def rec(*args):
+            self.calls.append(args)
+            return self.fn(*args)
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def hess_fd_check(an) -> tuple[dict, dict]:
+    """(b), (c) and (e): ``Analysis._hessian`` at θ₀ of the float64 analysis
+    through the kernels, its launches and seconds (the first call, then
+    another), each row against central differences of ∇logp (every
+    perturbed point in one value and gradient); the solver's outputs,
+    ``logp`` and the gradient of a seeded loss of the solver's outputs with
+    the gradient's graph (``create_graph=True``) against without it, bit for
+    bit, ∇logp within ``HESS_GRAPH_GRAD_BUDGET``, and the launches of a
+    value and gradient; the second-order kernels timed again on the inputs
+    the Hessian gave them."""
+    theta0 = np.asarray(an.space.theta0(), np.float64)
+    ndim = theta0.size
+    bk.reset_launch_counts()
+    qf.reset_launch_counts()
+    with KernelRecorder(thermo, "recomb_scan_jvp2_cuda") as rr, \
+            KernelRecorder(eb, "eb_solve_jvp2_cuda") as er:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = an._hessian(theta0)
+        torch.cuda.synchronize()
+        hess_s = time.perf_counter() - t0
+    launches = dict(bk.LAUNCHES)
+    qf_shapes = dict(qf.LAUNCHES_BY_SHAPE)
+    saved = dict(bk.LAUNCHES)
+    t0 = time.perf_counter()
+    h_again = an._hessian(theta0)
+    torch.cuda.synchronize()
+    hess_again_s = time.perf_counter() - t0
+    bk.LAUNCHES.update(saved)
+    # the jet pass alone (its host stages and the two kernels) at the same rows
+    prov = an.providers["LRG"]
+    par = thermo.as_batch(prov._params(an.params_dict(torch.as_tensor(
+        np.tile(theta0, (ndim, 1)), dtype=torch.float64, device="cuda"))))
+    names = tuple(n for n in eb.TABLE_FIELDS if n in an.space.sampled)
+    saved = dict(bk.LAUNCHES)
+    _, jet_ms = timed(lambda: prov.solver.table_hessians(par, names))
+    (ins, dlna), = rr.calls
+    (tab, parts, dsched, nk), = er.calls
+    _, recomb_ms = timed(lambda: thermo.recomb_scan_jvp2_cuda(ins, dlna))
+    _, eb_ms = timed(lambda: eb.eb_solve_jvp2_cuda(tab, parts, dsched, nk))
+    _, recomb_fwd_ms = timed(lambda: thermo.recomb_scan_cuda(*(t.contiguous() for t in ins.v),
+                                                             dlna))
+    _, eb_fwd_ms = timed(lambda: eb.eb_solve_cuda(tab, dsched, nk))
+    bk.LAUNCHES.update(saved)
+    nrows = tab.stacked.shape[0]
+    sched = prov.solver.schedule()
+    longest = int(sched.steps.max())
+    nz = dsched["out_idx"].shape[1]
+    times = dict(
+        hessian_seconds=hess_s, hessian_seconds_again=hess_again_s,
+        hessian_repeats_bitwise=bool(np.array_equal(h, h_again)),
+        table_hessians_ms=jet_ms, rows=nrows, fields=list(names),
+        recomb_scan_jvp2_ms=recomb_ms, recomb_scan_ms_same_rows=recomb_fwd_ms,
+        eb_solve_jvp2_ms=eb_ms, eb_solve_ms_same_rows=eb_fwd_ms,
+        host_ms_of_table_hessians=jet_ms - recomb_ms - eb_ms,
+        longest_mode_steps=longest, us_per_step_longest=dict(
+            eb_solve_jvp2=eb_ms * 1e3 / longest, eb_solve=eb_fwd_ms * 1e3 / longest),
+        eb_solve_jvp2=eb_bound(int(sched.steps.sum()) * nrows, longest,
+                               eb_bytes(tab, dsched, nz, nk, hyper=True), hyper=True),
+        recomb_scan_jvp2=recomb_bound(nrows, ins.v[0].shape[-1], hyper=True))
+    # central differences of the gradient: every row, step and sign in one batch
+    steps = np.array(FD_STEPS)[:, None] * np.abs(theta0)[None]                # (S, ndim)
+    shifted = np.repeat(np.repeat(theta0[None, None, None], len(FD_STEPS), 0), ndim, 1)
+    shifted = np.repeat(shifted, 2, 2)                                         # (S, ndim, 2, ndim)
+    for j in range(ndim):
+        shifted[:, j, 0, j] += steps[:, j]
+        shifted[:, j, 1, j] -= steps[:, j]
+    bk.reset_launch_counts()
+    x = torch.as_tensor(shifted.reshape(-1, ndim), dtype=torch.float64, device="cuda")
+    _, g = value_and_grad_fn(an, x)()
+    fd_launches = dict(bk.LAUNCHES)
+    g = g.cpu().numpy().reshape(len(FD_STEPS), ndim, 2, ndim)
+    fd = (g[:, :, 0] - g[:, :, 1]) / (2.0 * steps[:, :, None])                 # (S, ndim, ndim)
+    scale = np.abs(h).max(axis=1, keepdims=True)
+    rel = np.abs(fd - h[None]) / scale[None]                                   # (S, ndim, ndim)
+    best = rel.min(axis=0)
+    sym = float(np.abs(h - h.T).max() / np.abs(h).max())
+    # with and without the gradient's graph
+    rng = np.random.default_rng(34)
+    xs = torch.as_tensor(theta0[None] * (1.0 + 1e-2 * rng.standard_normal((2, ndim))),
+                         dtype=torch.float64, device="cuda")
+    rec = prov.solver = SolverRecorder(prov.solver)
+    fields = ("pk", "pk_cb", "sigma8", "f", "h_of_z", "da_of_z", "rs_drag")
+    weights = None
+    runs = []
+    try:
+        for graph in (False, True):
+            xg = xs.clone().requires_grad_()
+            bk.reset_launch_counts()
+            lp = an.logp(xg)
+            (gr,) = torch.autograd.grad(lp.sum(), xg, create_graph=graph, retain_graph=True)
+            counts = dict(bk.LAUNCHES)
+            sol = rec.calls[-1]
+            if weights is None:
+                weights = [torch.as_tensor(rng.standard_normal(tuple(getattr(sol, f).shape)),
+                                           device="cuda") / getattr(sol, f).detach().abs().mean()
+                           for f in fields]
+            loss = sum((w * getattr(sol, f)).sum() for w, f in zip(weights, fields))
+            (gs,) = torch.autograd.grad(loss, xg, create_graph=graph)
+            runs.append((lp.detach(), gr.detach(), counts, gs.detach()))
+    finally:
+        prov.solver = rec.solver
+    outputs_equal = {f: bool(torch.equal(getattr(rec.calls[0], f).detach(),
+                                         getattr(rec.calls[1], f).detach()))
+                     for f in eb.LinearPower._fields}
+    out = dict(dtype="float64", params=list(an.space.sampled), theta0=theta0.tolist(),
+               hessian=h.tolist(), symmetry_err=sym, symmetry_budget=HESS_SYM_BUDGET,
+               fd_steps_rel=list(FD_STEPS), fd_rel_err_by_step=rel.max(axis=(1, 2)).tolist(),
+               fd_rel_err_by_row=dict(zip(an.space.sampled, best.max(axis=1).tolist())),
+               fd_max_rel_err=float(best.max()), fd_budget=HESS_FD_BUDGET,
+               fd_batch=int(x.shape[0]), fd_launches=fd_launches,
+               solver_outputs_equal_with_graph=outputs_equal,
+               logp_equal_with_graph=bool(torch.equal(runs[0][0], runs[1][0])),
+               solver_grad_equal_with_graph=bool(torch.equal(runs[0][3], runs[1][3])),
+               grad_rel_err_with_graph=rel_err(runs[1][1], runs[0][1]),
+               grad_graph_budget=HESS_GRAPH_GRAD_BUDGET,
+               launches_value_and_grad=runs[0][2], launches_value_and_grad_with_graph=runs[1][2],
+               launches_hessian=launches, times=times,
+               finite=bool(np.isfinite(h).all() and np.isfinite(g).all()))
+    return out, qf_shapes
+
+
+def hess_laplace(an64, an32) -> tuple[dict, dict, dict]:
+    """(d): ``laplace_cov()`` of both analyses (finite, positive-definite),
+    its seconds, and ``run_mcmc(sampler="hmc", init="laplace")`` on the
+    float32 analysis (2 chains, ``n_leapfrog=1``, ``warmup_steps=1``, 1
+    step; its metric and start from the Laplace covariance)."""
+    out, launches = {}, {}
+    for name, an in (("float64", an64), ("float32", an32)):
+        bk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cov = an.laplace_cov()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = dict(bk.LAUNCHES)
+        ev = np.linalg.eigvalsh(0.5 * (cov + cov.T))
+        out[name] = dict(seconds=seconds, finite=bool(np.isfinite(cov).all()),
+                         positive_definite=bool(ev.min() > 0), min_eig=float(ev.min()),
+                         sigma=np.sqrt(np.diag(cov)).tolist(), launches=launches[name])
+    bk.reset_launch_counts()
+    qf.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = an32.run_mcmc(nwalkers=2, out=os.path.join(tmp, "hmc"), max_steps=1, block=1,
+                            rhat_tol=-1.0, key=0, sampler="hmc", init="laplace", n_leapfrog=1,
+                            warmup_steps=1, with_derived=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    out["hmc_laplace"] = dict(nchains=2, n_leapfrog=1, warmup_steps=1, steps=1, dtype="float32",
+                              chain_shape=list(res.chain.shape), accept_rate=res.accept_rate,
+                              finite=bool(np.isfinite(res.chain).all()
+                                          and np.isfinite(res.logps).all()),
+                              seconds=seconds, launches=dict(bk.LAUNCHES))
+    return out, launches["float64"], dict(bk.LAUNCHES)
+
+
+def solver_hessian_phase(solver, an64, an32, lines: list) -> dict:
+    """Phase 10c: the solver's second derivative on the card
+    (``solver_hessian`` line).  ``solver``: the 4-D recipe solver, for (a);
+    ``an64``, ``an32``: ``solver_grad``'s analyses.  Returns the solver
+    kernels' launches by path, the ``qf_real`` launches by shape of the
+    paths, and the line."""
+    t_phase = time.perf_counter()
+    out, by_path, qf_paths = {}, {}, {}
+    out["recomb_check"] = hess_check_recomb()
+    out["eb_check"] = hess_check_eb(solver)
+    out["hessian"], qf_paths["solver_hessian_fd"] = hess_fd_check(an64)
+    by_path["solver_hessian_fd"] = out["hessian"]["fd_launches"]
+    out["laplace"], by_path["solver_hessian"], by_path["solver_hmc_laplace"] = hess_laplace(
+        an64, an32)
+    out["nvidia_smi"] = nvidia_smi_line()
+    out["seconds"] = time.perf_counter() - t_phase
+    lines.append(emit("solver_hessian", **out))
+    failed = []
+    for key in ("recomb_check", "eb_check"):
+        c = out[key]
+        if not (c["finite"] and all(v <= c["budget"] for v in c["part_err"].values())):
+            failed.append(f"{key} parts {c['part_err']}")
+        if not (c["value_err"] <= HESS_LOWER_BUDGET and c["first_order_err"] <= HESS_LOWER_BUDGET):
+            failed.append(f"{key} value / first order {c['value_err']} {c['first_order_err']}")
+    hs = out["hessian"]
+    if not (hs["finite"] and hs["fd_max_rel_err"] <= HESS_FD_BUDGET
+            and hs["symmetry_err"] <= HESS_SYM_BUDGET):
+        failed.append(f"hessian {hs['fd_rel_err_by_row']} symmetry {hs['symmetry_err']}")
+    if not (all(hs["solver_outputs_equal_with_graph"].values()) and hs["logp_equal_with_graph"]
+            and hs["solver_grad_equal_with_graph"]
+            and hs["grad_rel_err_with_graph"] <= HESS_GRAPH_GRAD_BUDGET
+            and hs["times"]["hessian_repeats_bitwise"]):
+        failed.append(f"with/without the graph {hs['solver_outputs_equal_with_graph']} "
+                      f"{hs['solver_grad_equal_with_graph']} {hs['grad_rel_err_with_graph']}")
+    one_each = dict(eb_solve=1, recomb_scan=1, eb_solve_jvp=1, recomb_scan_jvp=1)
+    for key in ("launches_value_and_grad", "launches_value_and_grad_with_graph"):
+        if hs[key] != one_each | dict(eb_solve_jvp2=0, recomb_scan_jvp2=0):
+            failed.append(f"{key} {hs[key]}")
+    if hs["launches_hessian"] != one_each | dict(eb_solve_jvp2=1, recomb_scan_jvp2=1):
+        failed.append(f"launches of one Hessian {hs['launches_hessian']}")
+    la = out["laplace"]
+    for name in ("float64", "float32"):
+        if not (la[name]["finite"] and la[name]["positive_definite"]):
+            failed.append(f"laplace_cov {name} {la[name]}")
+    if not la["hmc_laplace"]["finite"]:
+        failed.append(f"hmc init=laplace {la['hmc_laplace']}")
+    if failed:
+        raise SystemExit(f"chip_smoke: solver_hessian: failed {failed}")
     return dict(by_path=by_path, qf_paths=qf_paths, out=out)
 
 
@@ -2457,7 +2836,7 @@ def training_phase(lines: list) -> dict:
         failed.append(f"(d) {out['provider']}")
     calls = r["n"] // r["batch"]  # and no tangent kernel: the solves take no gradient
     if launches != {"eb_solve": calls, "recomb_scan": calls, "eb_solve_jvp": 0,
-                    "recomb_scan_jvp": 0}:
+                    "recomb_scan_jvp": 0, "eb_solve_jvp2": 0, "recomb_scan_jvp2": 0}:
         failed.append(f"(e) launches {launches}")
     if failed:
         raise SystemExit(f"chip_smoke: training: failed {failed}")
@@ -2705,16 +3084,21 @@ def main() -> None:
     by_path.update(analysis_phase(lines))
     solver = solver_phase(lines, args.out, against)
     by_path["solver_analysis"] = solver["qf_shapes"]
-    grad = solver_grad_phase(solver.pop("solver"), lines, against)
+    box = solver.pop("solver")
+    grad = solver_grad_phase(box, lines, against)
     by_path.update(grad["qf_paths"])
     solver["by_path"].update(grad["by_path"])
+    hess = solver_hessian_phase(box, grad.pop("an64"), grad.pop("an32"), lines)
+    del box
+    by_path.update(hess["qf_paths"])
+    solver["by_path"].update(hess["by_path"])
     solver["by_path"]["training"] = training_phase(lines)
     transfer_training_phase(lines)
     # the quadratic-form kernels at the shapes the solver's analyses (their
     # values and gradients) and the mesh path gave them
     checked = {(r["kernel"], r["dtype"], r["W"], r["N"], r["S"], r["BL"]) for r in rows}
     launched = set(solver["qf_shapes"]) | set(by_path["mesh"])
-    for shapes in grad["qf_paths"].values():
+    for shapes in list(grad["qf_paths"].values()) + list(hess["qf_paths"].values()):
         launched |= set(shapes)
     for key in sorted(launched - checked):
         kernel, suffix, nw, n, s_, bl = key
@@ -2742,7 +3126,7 @@ def main() -> None:
             if not any(r["name"].startswith(f"{kernel}[{suffix},") for r in out_rows):
                 raise SystemExit(f"chip_smoke: kernel {kernel} ({suffix}) was not launched "
                                  f"on any path")
-    solver["rows"] = solver_rows(solver["out"], grad["out"], solver["by_path"])
+    solver["rows"] = solver_rows(solver["out"], grad["out"], hess["out"], solver["by_path"])
     for row in solver["rows"]:
         if row["launches"] <= 0:
             raise SystemExit(f"chip_smoke: kernel {row['name']} was not launched on any path")

@@ -1,6 +1,7 @@
 """Loader, checks and launch counters of the solver's CUDA kernels
-(``csrc/boltzmann.cu``: ``recomb_scan`` and ``eb_solve``, and their tangent
-kernels ``recomb_scan_jvp`` and ``eb_solve_jvp``).
+(``csrc/boltzmann.cu``: ``recomb_scan`` and ``eb_solve``, their tangent
+kernels ``recomb_scan_jvp`` and ``eb_solve_jvp``, and their second-order
+kernels ``recomb_scan_jvp2`` and ``eb_solve_jvp2``).
 
 The library is built by :mod:`eftpipe_tpu_torch.ops._build` at the first
 launch, never at import.  Each C function takes its tensors' pointers, then
@@ -17,7 +18,8 @@ import torch
 
 from ..ops import _build
 
-LAUNCHES = {"eb_solve": 0, "recomb_scan": 0, "eb_solve_jvp": 0, "recomb_scan_jvp": 0}
+LAUNCHES = {"eb_solve": 0, "recomb_scan": 0, "eb_solve_jvp": 0, "recomb_scan_jvp": 0,
+            "eb_solve_jvp2": 0, "recomb_scan_jvp2": 0}
 _FUNCS: dict[str, object] = {}
 
 

@@ -31,8 +31,14 @@ Differences from the JAX module:
   under forward AD on W·P rows (row (w, p) seeded with the p-th of the P
   differentiated fields among ω_b, ω_cdm, h, m_ncdm, N_ur and Y_He), whose
   tangents are the Jacobian that its backward contracts.  That pass
-  launches only the tangent kernels, which give the primal too.  A second
-  derivative through it (``create_graph=True``) raises (ROADMAP A8.2);
+  launches only the tangent kernels, which give the primal too.  Its second
+  derivative (a backward with ``create_graph=True``: ``Analysis.laplace_cov``)
+  is forward-mode too: :meth:`EBSolver.table_hessians`, one pass on
+  W·P(P+1)/2 rows, one pair of fields a row, each quantity a jet (value, two
+  first-order parts, the mixed part; ``boltzmann/jet.py``), the plain stages
+  by nested ``torch.func.jvp`` and each recurrence by its hyper-dual kernel
+  (``recomb_scan_jvp2``, ``eb_solve_jvp2``), made only when a double backward
+  reaches it.  A third derivative raises;
 * always float64; :class:`SolverProvider` casts its outputs to the dtype
   of the parameters it is given.
 
@@ -53,9 +59,10 @@ from torch.autograd import forward_ad
 from .. import resolve_device
 from . import _kernels
 from .dual import DenseTangents, direct_tangents, tangent_or_zeros
+from .jet import HyperDual, Jet, as_jet, hessian_of, jet_call, pair_rows
 from .thermo import (
     CosmoParams, Background, Thermo, as_batch, background_tables, thermo_tables,
-    gradient, interp, _const, _h0_mpc, F64,
+    gradient, interp, recomb_scan_jvp2, scan_step, _const, _h0_mpc, F64,
 )
 
 # hierarchy truncations (CLASS P(k)-grade defaults)
@@ -705,6 +712,39 @@ def eb_solve_jvp_cuda(tab: EBTables, d_stacked, dsched: dict, nk: int):
     return _eb_outputs(out, nw, nz, nk), _eb_outputs(dout, nw, nz, nk)
 
 
+def eb_solve_jvp2_cuda(tab: EBTables, parts, dsched: dict, nk: int) -> Jet:
+    """Launch ``eb_solve_jvp2``: the solve and its second order, one pair of
+    directions a row, ``parts`` the parts of ``tab.stacked`` in the
+    directions p and q and its mixed part.  Returns the jet of (δ_m, δ_cb,
+    ζ_ini)."""
+    nw, ng = _check_eb(tab, dsched)
+    parts = torch.stack(tuple(parts), -1)
+    _kernels.check("parts of the tables", parts.contiguous(), (*tab.stacked.shape, 3),
+                   tab.stacked)
+    dev = tab.stacked.device
+    table = tab.stacked.transpose(1, 2).contiguous()
+    dtable = parts.transpose(1, 2).contiguous()  # (W, n, 14, 3): a point's rows together
+    nm, nz = dsched["out_idx"].shape
+    out = torch.zeros((2 * nw * nz * nk + nw * nk,), dtype=F64, device=dev)
+    dout = torch.zeros((out.shape[0], 3), dtype=F64, device=dev)
+    _kernels.launch("eb_solve_jvp2", dev, table, dtable, *_eb_args(tab, dsched), out, dout,
+                    ints=(nw, nm, nk, nz, ng))
+    return Jet(tuple(_eb_outputs(out, nw, nz, nk)),
+               *(tuple(_eb_outputs(d, nw, nz, nk)) for d in dout.unbind(-1)))
+
+
+def eb_solve_jvp2(tab: EBTables, parts, k_mpc, buckets, dsched: dict | None = None) -> Jet:
+    """The solve's jet: :func:`eb_solve_jvp2_cuda` on the card, on the CPU
+    the plain step loops of :func:`eb_solve` on hyper-dual tables
+    (``jet.HyperDual``)."""
+    st = tab.stacked
+    if st.is_cuda:
+        if dsched is None:
+            dsched = kernel_schedule(k_mpc, buckets).to(st.device)
+        return eb_solve_jvp2_cuda(tab, parts, dsched, len(k_mpc))
+    return as_jet(eb_solve(tab._replace(stacked=HyperDual(st, *parts)), k_mpc, buckets))
+
+
 class _EBSolve(torch.autograd.Function):
     """``eb_solve`` on the card for tables that require grad: the forward
     kernel, and no reverse mode (:class:`EBSolver` takes the gradient on
@@ -953,6 +993,59 @@ class EBSolver:
             out = self.table_part(tangent_rows(par, names))
             return [tangent_or_zeros(o).reshape(nw, p, *o.shape[1:]) for o in out]
 
+    def table_hessians(self, par: CosmoParams, names) -> list:
+        """The second derivatives of :meth:`table_part` in the fields
+        ``names`` (P of ``TABLE_FIELDS``): one pass on the W·P(P+1)/2 rows of
+        ``jet.pair_rows``, each quantity a jet.  The plain stages (the
+        backgrounds and the recurrence's inputs; the thermodynamic and the
+        solver's tables with the interpolations at the output times) by
+        ``jet.jet_call`` under ``DenseTangents``, each recurrence by its
+        second-order kernel (on the card: one launch of ``recomb_scan_jvp2``
+        and one of ``eb_solve_jvp2``, which give the primal and the first
+        order too).  One (W, P, P, ...) tensor an output, symmetric."""
+        par = as_batch(par, self.device)
+        nw, p = par.h.shape[0], len(names)
+        values = {n: getattr(par, n) for n in CosmoParams._fields[:-1]}
+        rows, jet = pair_rows(values, names, par.h)
+        base = CosmoParams(**rows, deg_ncdm=par.deg_ncdm)
+        at = lambda f: base._replace(**dict(zip(names, f)))
+        st = thermo_tables(stages=True)
+        with torch.no_grad():  # the grids (constants): one row's
+            one = base._replace(**{n: v[:1] for n, v in rows.items()})
+            bg1 = background_tables(one)
+            bgf1 = st.fine_background(one, bg1)
+        fine = bgf1 is not None
+        nb = len(Background._fields) - 1
+        grid = lambda lna, t: Background(lna, *t)
+        lna_out = torch.log(1.0 / (1.0 + _const(self.z_out, par.h)))
+
+        def before(*f):
+            bg = background_tables(at(f))
+            bg_f, ins = st.before_scan(at(f), bg)
+            return (*bg[1:], *(bg_f[1:] if fine else ()), *ins)
+
+        def after(*x):
+            f, bg_t, x = x[:p], x[p:p + nb], x[p + nb:]
+            bg = grid(bg1.lna, bg_t)
+            bg_f, x = (grid(bgf1.lna, x[:nb]), x[nb:]) if fine else (None, x)
+            ins, rec = x[:6], x[6:]
+            th = st.after_scan(at(f), bg, bg_f, ins, rec)
+            tab = make_tables(at(f), bg, th)
+            return (tab.stacked, interp(lna_out, bg.lna, bg.conf_h),
+                    interp(lna_out, bg.lna, bg.tau), bg.tau0, th.rs_drag)
+
+        with DenseTangents():
+            ja = jet_call(before, jet)
+        ins = Jet(*(t[-6:] for t in ja))
+        rec = recomb_scan_jvp2(ins, scan_step(bgf1 if fine else bg1))
+        with DenseTangents():
+            jb = jet_call(after, Jet(*(f + a + r for f, a, r in zip(jet, ja, rec))))
+        tab = EBTables(lna=bg1.lna, dlna=bg1.lna[1] - bg1.lna[0], tau=None, stacked=jb.v[0])
+        dev = tab.stacked.device
+        sol = eb_solve_jvp2(tab, (jb.a[0], jb.b[0], jb.ab[0]), self.k_mpc, self.buckets,
+                            self.device_schedule(dev) if dev.type == "cuda" else None)
+        return [hessian_of(m, nw, p) for m in sol.ab + jb.ab[1:]]
+
     def __call__(self, par: CosmoParams) -> LinearPower:
         par = as_batch(par, self.device)
         if _tangent_route(par):
@@ -1004,11 +1097,11 @@ class EBSolver:
 # the fields of CosmoParams the tables depend on (ln10As and n_s enter after
 # the solve, in plain torch)
 TABLE_FIELDS = ("omega_b", "omega_cdm", "h", "m_ncdm", "n_ur", "yhe")
-A82 = ("EBSolver: no second derivative through the solver's CUDA kernels yet (ROADMAP "
-       "A8.2). Its gradient on the card is forward-mode, one tangent a parameter, and a "
-       "double backward (create_graph=True: Analysis.laplace_cov, run_mcmc(init=\"laplace\")) "
-       "needs second-order tangents through them. Use init=\"ball\", or the CPU, whose plain "
-       "solver differentiates twice")
+THIRD_ORDER = ("EBSolver: no third derivative through the solver's CUDA kernels: its first "
+               "derivative is forward-mode (one tangent a parameter), its second hyper-dual "
+               "(ROADMAP A8.2: one pair of parameters a row), and a backward of the second "
+               "with create_graph=True would need third-order parts. The CPU's plain solver "
+               "differentiates to any order")
 
 
 def tangent_rows(par: CosmoParams, names) -> CosmoParams:
@@ -1037,20 +1130,48 @@ class _SolverTables(torch.autograd.Function):
     numbers, bit for bit) and keeps ``jac``, the tangents of
     :meth:`EBSolver.table_tangents` in the differentiated fields (made
     outside: torch runs a Function's forward with forward AD off); its
-    backward contracts the incoming gradients with them.  No double
-    backward (``A82``)."""
+    backward contracts the incoming gradients with them.  Under grad mode
+    (``create_graph=True``) the contraction is differentiable: in the
+    incoming gradients as torch ops, in the fields through
+    :class:`_SolverJacobian`."""
 
     @staticmethod
     def forward(ctx, solver, par, jac, names, *fields):
-        ctx.save_for_backward(*jac)
+        ctx.solver, ctx.par, ctx.names = solver, par, names
+        ctx.save_for_backward(*jac, *fields)
         return solver.table_part(par._replace(**dict(zip(names, fields))))
 
     @staticmethod
     def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        jacs, fields = saved[:-len(ctx.names)], saved[-len(ctx.names):]
         if torch.is_grad_enabled():
-            raise NotImplementedError(A82)
+            jacs = _SolverJacobian.apply(ctx.solver, ctx.par, ctx.names, jacs, *fields)
         g = sum((jac * grad.unsqueeze(1)).reshape(*jac.shape[:2], -1).sum(-1)
-                for jac, grad in zip(ctx.saved_tensors, grads))  # (W, P)
+                for jac, grad in zip(jacs, grads))  # (W, P)
+        return (None, None, None, None, *g.unbind(1))
+
+
+class _SolverJacobian(torch.autograd.Function):
+    """The Jacobian ``jac`` of :class:`_SolverTables` as a function of the
+    differentiated fields, for a double backward: its forward gives ``jac``,
+    its backward contracts the incoming gradients with the second
+    derivatives of :meth:`EBSolver.table_hessians`, computed then (so a
+    value, or a value and gradient, never runs the second-order pass).  A
+    third derivative raises (``THIRD_ORDER``)."""
+
+    @staticmethod
+    def forward(ctx, solver, par, names, jac, *fields):
+        ctx.solver, ctx.par, ctx.names = solver, par, names
+        return tuple(j.clone() for j in jac)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(THIRD_ORDER)
+        hess = ctx.solver.table_hessians(ctx.par, ctx.names)
+        g = sum((h * grad.unsqueeze(2)).reshape(*h.shape[:3], -1).sum(-1).sum(1)
+                for h, grad in zip(hess, grads))  # (W, P)
         return (None, None, None, None, *g.unbind(1))
 
 

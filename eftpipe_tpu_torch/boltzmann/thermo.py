@@ -23,7 +23,11 @@ Differences from the JAX module:
   grid before it.  On the card it differentiates in forward mode only
   (``torch.autograd.forward_ad``: the tangent kernel ``recomb_scan_jvp``);
   the tables carry forward-mode tangents end to end, which is how
-  ``einstein_boltzmann.EBSolver`` takes the solver's gradient there.
+  ``einstein_boltzmann.EBSolver`` takes the solver's gradient there.  Its
+  second order is :func:`recomb_scan_jvp2` (the hyper-dual kernel
+  ``recomb_scan_jvp2`` on the card, the plain loop on ``jet.HyperDual``
+  operands on the CPU), which ``EBSolver.table_hessians`` reaches through
+  :class:`ThermoStages`: :func:`thermo_tables` cut at the recurrence.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from torch.autograd import forward_ad
 from .. import resolve_device
 from . import _kernels
 from .dual import direct_tangents
+from .jet import Jet, as_jet, hyper
 
 # ---------------------------------------------------------------------------
 # physical constants (SI)
@@ -313,17 +318,54 @@ class Thermo(NamedTuple):
 N_FINE = 32768  # the recombination recurrence's fine grid (the JAX default)
 
 
-def thermo_tables(par: CosmoParams, bg: Background,
-                  n_fine: int = N_FINE) -> Thermo:
+def thermo_tables(par: CosmoParams | None = None, bg: Background | None = None,
+                  n_fine: int = N_FINE, stages: bool = False) -> Thermo:
     """Thermodynamic histories, downsampled onto ``bg``'s grid.
 
     The recombination recurrence runs on an internal fine grid (``n_fine``,
     as in the JAX module) and the results are linearly interpolated onto the
-    caller's grid.  ``n_fine=0`` integrates directly on ``bg``'s grid."""
+    caller's grid.  ``n_fine=0`` integrates directly on ``bg``'s grid.
+    ``stages=True``: no tables, but the :class:`ThermoStages` of these
+    options (``par`` and ``bg`` unused), for a caller that crosses the
+    recurrence itself."""
+    st = ThermoStages(n_fine)
+    if stages:
+        return st
     par = as_batch(par)
-    if n_fine and n_fine > bg.lna.shape[0]:
-        bg_f = background_tables(par, n_grid=n_fine)
-        th_f = _thermo_on_grid(par, bg_f)
+    bg_f, ins = st.before_scan(par, bg)
+    rec = recomb_scan(*ins, scan_step(bg if bg_f is None else bg_f))
+    return st.after_scan(par, bg, bg_f, ins, rec)
+
+
+def scan_step(bg: Background) -> float:
+    """The ln-a step of the recurrence on ``bg``'s grid."""
+    return float(bg.lna[1] - bg.lna[0])
+
+
+class ThermoStages(NamedTuple):
+    """:func:`thermo_tables` cut at the recurrence: ``before_scan``, the
+    recurrence on its inputs, ``after_scan`` give its tables.  Both stages
+    are plain torch on the fields of ``par`` and the tables of ``bg``."""
+
+    n_fine: int
+
+    def fine_background(self, par: CosmoParams, bg: Background):
+        """The background on the recurrence's fine grid; None when the
+        recurrence runs on ``bg``'s grid."""
+        if self.n_fine and self.n_fine > bg.lna.shape[0]:
+            return background_tables(par, n_grid=self.n_fine)
+        return None
+
+    def before_scan(self, par: CosmoParams, bg: Background):
+        """(:meth:`fine_background`; the recurrence's inputs on its grid)."""
+        bg_f = self.fine_background(par, bg)
+        return bg_f, recomb_inputs(par, bg if bg_f is None else bg_f)
+
+    def after_scan(self, par: CosmoParams, bg: Background, bg_f, ins, rec) -> Thermo:
+        """The tables from the recurrence's outputs ``rec`` (x_H, x_e, T_M)."""
+        if bg_f is None:
+            return _thermo_after_scan(par, bg, ins, rec)
+        th_f = _thermo_after_scan(par, bg_f, ins, rec)
         g = lambda t: interp(bg.lna, th_f.lna, t)
         return Thermo(
             lna=bg.lna, xe=g(th_f.xe), tm=g(th_f.tm), dkappa=g(th_f.dkappa),
@@ -331,7 +373,6 @@ def thermo_tables(par: CosmoParams, bg: Background,
             tau_drag=th_f.tau_drag, rs_drag=th_f.rs_drag, z_drag=th_f.z_drag,
             tau_rec=th_f.tau_rec,
         )
-    return _thermo_on_grid(par, bg)
 
 
 # --- the recurrence: Peebles hydrogen (Crank–Nicolson) + T_M ----------------
@@ -474,6 +515,38 @@ def recomb_scan(tg, nh, hs, x_saha, he_term, f_he, dlna: float):
     return _RecombScan.apply(*args, float(dlna))
 
 
+def recomb_scan_jvp2_cuda(jet: Jet, dlna: float) -> Jet:
+    """Launch ``recomb_scan_jvp2``: the recurrence and its second order, one
+    pair of directions a row.  ``jet``: the six arguments of
+    :func:`recomb_scan_cuda` with their parts in the directions p and q and
+    their mixed parts.  Returns the jet of (x_H, x_e, T_M)."""
+    inputs = [t.contiguous() for t in jet.v]
+    nw, n = _check_recomb(*inputs)
+    names = ("tg", "nh", "hs", "x_saha", "he_term", "f_he")
+    parts = [torch.stack(p, -1).contiguous() for p in zip(jet.a, jet.b, jet.ab)]
+    for name, t, like in zip(names, parts, inputs):
+        _kernels.check(f"parts of {name}", t, (*like.shape, 3), like)
+    out = torch.empty((3, nw, n), dtype=F64, device=inputs[0].device)
+    dout = torch.empty((3, nw, n, 3), dtype=F64, device=inputs[0].device)
+    _kernels.launch("recomb_scan_jvp2", inputs[0].device, *inputs, *parts, out, dout,
+                    ints=(nw, n), doubles=(float(dlna),))
+    return Jet(tuple(out.unbind(0)), *(tuple(dout[..., i].unbind(0)) for i in range(3)))
+
+
+def recomb_scan_jvp2_plain(jet: Jet, dlna: float) -> Jet:
+    """The second order of :func:`recomb_scan_plain`: the step loop on
+    hyper-dual operands (``jet.HyperDual``)."""
+    return as_jet(recomb_scan_plain(*hyper(jet), dlna))
+
+
+def recomb_scan_jvp2(jet: Jet, dlna: float) -> Jet:
+    """The recurrence's jet (:func:`recomb_scan_jvp2_cuda` on the card, the
+    plain version on the CPU)."""
+    if jet.v[0].is_cuda:
+        return recomb_scan_jvp2_cuda(jet, dlna)
+    return recomb_scan_jvp2_plain(jet, dlna)
+
+
 def recomb_inputs(par: CosmoParams, bg: Background):
     """The recurrence's carry-free inputs on ``bg``'s grid: (T_γ, n_H, H in
     1/s, Saha x_H, f_He (x_HeII + 2 x_HeIII), f_He (W,))."""
@@ -488,13 +561,15 @@ def recomb_inputs(par: CosmoParams, bg: Background):
     return tg, n_h, h_si, x_saha, he_term, f_he
 
 
-def _thermo_on_grid(par: CosmoParams, bg: Background) -> Thermo:
+def _thermo_after_scan(par: CosmoParams, bg: Background, ins, rec) -> Thermo:
+    """The tables on the recurrence's grid ``bg`` from its inputs ``ins``
+    and outputs ``rec``."""
     lna = bg.lna
     a = torch.exp(lna)
     dlna = lna[1] - lna[0]
 
-    tg, n_h, h_si, x_saha, he_term, f_he = recomb_inputs(par, bg)
-    xh, xe, tm = recomb_scan(tg, n_h, h_si, x_saha, he_term, f_he, float(dlna))
+    tg, n_h, h_si, x_saha, he_term, f_he = ins
+    xh, xe, tm = rec
 
     dkappa = a * xe * n_h * SIGMA_T * MPC_M  # 1/Mpc
 

@@ -155,7 +155,8 @@ def test_recomb_scan_jvp_matches_plain_on_card(cuda):
         _kernels.reset_launch_counts()
         got = [forward_ad.unpack_dual(o) for o in thermo.recomb_scan(*ins, dlna)]
         assert _kernels.LAUNCHES == dict(eb_solve=0, recomb_scan=0, eb_solve_jvp=0,
-                                         recomb_scan_jvp=1)
+                                         recomb_scan_jvp=1, eb_solve_jvp2=0,
+                                         recomb_scan_jvp2=0)
         ref = [forward_ad.unpack_dual(o) for o in thermo.recomb_scan_plain(*ins, dlna)]
     for g, r in zip(got, ref):
         assert torch.isfinite(r.tangent).all() and float(r.tangent.abs().max()) > 0
@@ -236,7 +237,8 @@ def test_eb_solve_ragged_batches_match_plain_on_card(cuda, nw):
     _kernels.reset_launch_counts()
     with torch.no_grad():
         got = eb.eb_solve(tab, RAGGED_K, buckets)
-    assert _kernels.LAUNCHES == dict(eb_solve=1, recomb_scan=0, eb_solve_jvp=0, recomb_scan_jvp=0)
+    assert _kernels.LAUNCHES == dict(eb_solve=1, recomb_scan=0, eb_solve_jvp=0, recomb_scan_jvp=0,
+                                     eb_solve_jvp2=0, recomb_scan_jvp2=0)
     ref = [eb.eb_solve_plain(tab, RAGGED_K[b[0]], b[1], b[2], b[3]) for b in buckets]
     sel = torch.as_tensor(np.concatenate([b[0] for b in buckets]), device=cuda)
     for name in ("delta_m", "delta_cb", "zeta_ini"):
@@ -389,10 +391,177 @@ def test_solver_gradient_on_card_matches_plain_autograd(cuda):
         _, _, want, _ = value_and_grad("cpu")
         _kernels.reset_launch_counts()
         outs, ref, got, launches = value_and_grad(cuda)
-    assert launches == dict(eb_solve=1, recomb_scan=1, eb_solve_jvp=1, recomb_scan_jvp=1)
+    assert launches == dict(eb_solve=1, recomb_scan=1, eb_solve_jvp=1, recomb_scan_jvp=1,
+                            eb_solve_jvp2=0, recomb_scan_jvp2=0)
     for o, r in zip(outs, [ref.pk, ref.pk_cb, ref.sigma8, ref.h_of_z, ref.da_of_z,
                            ref.rs_drag]):
         assert torch.equal(o.detach(), r)
+    for name, g, w in zip(fields, got, want):
+        assert torch.isfinite(w).all() and float(w.abs().max()) > 0, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-8,
+                                   atol=1e-8 * float(w.abs().max()), err_msg=name)
+
+
+def pair_jet(par, names=("omega_cdm", "h")):
+    """The pair rows of ``par`` in ``names`` (``jet.pair_rows``), as the
+    solver's second-order pass seeds them: (every field's rows, the jet of
+    the ``names`` fields)."""
+    from eftpipe_tpu_torch.boltzmann import jet, thermo
+
+    values = {n: getattr(par, n) for n in thermo.CosmoParams._fields[:-1]}
+    return jet.pair_rows(values, names, par.h)
+
+
+def rel_part_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.gpu
+def test_recomb_scan_jvp2_matches_plain_on_card(cuda):
+    """``recomb_scan_jvp2`` (the hyper-dual kernel) against the plain step
+    loop on hyper-dual operands on the host: three cosmologies on a
+    512-point grid, their pair rows in (ω_cdm, h), the inputs' jets those of
+    the stage before the recurrence (``jet.jet_call``); every part within
+    1e-9 of its largest |value|; the value and the first-order parts within
+    1e-12 of the forward and the tangent kernels' on the same rows; one
+    launch."""
+    from eftpipe_tpu_torch.boltzmann import _kernels, jet, thermo
+
+    par = thermo.as_batch(thermo.CosmoParams(
+        omega_b=torch.tensor([0.0224, 0.020, 0.027], dtype=torch.float64, device=cuda),
+        omega_cdm=torch.tensor([0.12, 0.08, 0.25], dtype=torch.float64, device=cuda),
+        h=torch.tensor([0.68, 0.6, 0.8], dtype=torch.float64, device=cuda),
+        ln10As=3.044, ns=0.9649, m_ncdm=0.02, n_ur=0.00641, deg_ncdm=3.0))
+    rows, pj = pair_jet(par)
+    base = thermo.CosmoParams(**rows, deg_ncdm=3.0)
+
+    def stage(ocdm, h):
+        p = base._replace(omega_cdm=ocdm, h=h)
+        return thermo.recomb_inputs(p, thermo.background_tables(p, n_grid=512))
+
+    ins = jet.jet_call(stage, pj)
+    dlna = thermo.scan_step(thermo.background_tables(base, n_grid=512))
+    _kernels.reset_launch_counts()
+    got = thermo.recomb_scan_jvp2(ins, dlna)
+    assert _kernels.LAUNCHES["recomb_scan_jvp2"] == 1 and sum(_kernels.LAUNCHES.values()) == 1
+    want = thermo.recomb_scan_jvp2_plain(jet.Jet(*(tuple(t.cpu() for t in p) for p in ins)), dlna)
+    for part in range(4):
+        for g, w in zip(got[part], want[part]):
+            assert torch.isfinite(w).all() and float(w.abs().max()) > 0, part
+            assert rel_part_err(g.cpu(), w) <= 1e-9, part
+    fwd = thermo.recomb_scan_cuda(*(t.contiguous() for t in ins.v), dlna)
+    _, dual = thermo.recomb_scan_jvp_cuda([t.contiguous() for t in ins.v],
+                                          [t.contiguous() for t in ins.a], dlna)
+    for g, f in zip(got.v, fwd):
+        assert float(((g - f).abs() / f.abs()).max()) <= 1e-12
+    for g, d in zip(got.a, dual):
+        assert rel_part_err(g, d) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_eb_solve_jvp2_matches_plain_on_card(cuda):
+    """``eb_solve_jvp2`` (the hyper-dual kernel, one warp a row and mode)
+    against ``eb_solve_plain`` on hyper-dual tables on the host: the two
+    cosmologies of the tangent kernel's test, three modes on coarse
+    schedules with TCA and post-TCA steps, seeded parts of the tables;
+    every part of δ_m, δ_cb and ζ_ini within 1e-9 of its largest |value|;
+    the value and the first-order part within 1e-12 of the forward and the
+    tangent kernels'; one launch."""
+    from eftpipe_tpu_torch.boltzmann import _kernels, einstein_boltzmann as eb, thermo
+
+    par = eb.stack_params([thermo.CosmoParams(omega_b=0.0224, omega_cdm=0.12, h=0.68,
+                                              ln10As=3.044, ns=0.9649, deg_ncdm=3.0),
+                           thermo.CosmoParams(omega_b=0.023, omega_cdm=0.125, h=0.69,
+                                              ln10As=3.0, ns=0.96, deg_ncdm=3.0)], cuda)
+    ks = np.array([1e-4, 2e-3, 0.02])
+    with torch.no_grad():
+        tab, buckets, _ = cut_buckets(eb, thermo, par, ks)
+    rng = np.random.default_rng(11)
+    st = tab.stacked
+    parts = tuple(s * st * torch.as_tensor(rng.standard_normal(tuple(st.shape)), device=cuda)
+                  for s in (1e-2, 2e-2, 1e-3))
+    dsched = eb.kernel_schedule(ks, buckets).to(cuda)
+    _kernels.reset_launch_counts()
+    got = eb.eb_solve_jvp2(tab, parts, ks, buckets, dsched)
+    assert _kernels.LAUNCHES["eb_solve_jvp2"] == 1 and sum(_kernels.LAUNCHES.values()) == 1
+    host = eb.EBTables(tab.lna.cpu(), tab.dlna.cpu(), None, st.cpu())
+    want = eb.eb_solve_jvp2(host, tuple(p.cpu() for p in parts), ks, buckets)
+    for part in range(4):
+        for g, w in zip(got[part], want[part]):
+            assert torch.isfinite(w).all() and float(w.abs().max()) > 0, part
+            assert rel_part_err(g.cpu(), w) <= 1e-9, part
+    fwd = eb.eb_solve_cuda(tab, dsched, ks.size)
+    _, dual = eb.eb_solve_jvp_cuda(tab, parts[0].contiguous(), dsched, ks.size)
+    for g, f, d, a in zip(got.v, fwd, dual, got.a):
+        assert rel_part_err(g, f) <= 1e-12 and rel_part_err(a, d) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_solver_hessian_on_card_matches_plain_autograd(cuda):
+    """The solver's second derivative on the card (the double backward of
+    ``_SolverTables``: the jet pass with the hyper-dual kernels) against
+    reverse-over-reverse autograd of the plain versions on the CPU, on the
+    cut solver of the gradient's test: a seeded loss of every output of
+    ``EBSolver``, nonlinear in them, in ω_cdm, h, ln10As and n_s at W=2
+    (a seeded combination of the gradient's components differentiated
+    once more), rtol 1e-8; the gradient with its graph equals the one
+    without it bit for bit; one Hessian launches each of the six kernels
+    once."""
+    import functools
+
+    from eftpipe_tpu_torch.boltzmann import _kernels, einstein_boltzmann as eb, thermo
+    from eftpipe_tpu_torch.convert import eb_solver_from_numpy
+
+    fields = ("omega_cdm", "h", "ln10As", "ns")
+    rows = dict(omega_b=[0.0224, 0.023], omega_cdm=[0.12, 0.125], h=[0.68, 0.69],
+                ln10As=[3.044, 3.0], ns=[0.9649, 0.96], m_ncdm=[0.02, 0.03],
+                n_ur=[0.00641, 0.00641], yhe=[0.2454, 0.25])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(eb, "background_tables", functools.partial(thermo.background_tables,
+                                                              n_grid=512))
+        mp.setattr(eb, "thermo_tables", functools.partial(thermo.thermo_tables, n_fine=0))
+        ks = np.array([1e-4, 1e-3, 0.01])
+        with torch.no_grad():
+            par0 = eb.stack_params([thermo.CosmoParams(**{k: v[0] for k, v in rows.items()},
+                                                       deg_ncdm=3.0)], "cpu")
+            bg = eb.background_tables(par0)
+            hb, ht = eb.host_tables(bg, eb.thermo_tables(par0, bg))
+        raw, rm = eb.build_schedule(ks, hb[0], ht[0], np.log([1 / 1.5]), pad=False,
+                                    phase_acc=0.9, dlna_max=0.2)
+        grids, masks = eb._pad_grids(raw), eb._pad_masks(rm)
+        sched = dict(k_mpc=ks, z_out=[0.5], lna_out=np.log([1 / 1.5]), dlna_f=0.02,
+                     growth_stencil=False,
+                     buckets=[(np.arange(ks.size), grids, masks,
+                               eb.out_indices(grids, np.log([1 / 1.5])))])
+        rng = np.random.default_rng(16)
+        u = rng.standard_normal(len(fields))
+        weights = None
+
+        def hessian(device):
+            nonlocal weights
+            solver = eb_solver_from_numpy(sched, device=device)
+            leaves = {k: torch.tensor(v, dtype=torch.float64, device=device,
+                                      requires_grad=k in fields) for k, v in rows.items()}
+            lp = solver(thermo.CosmoParams(**leaves, deg_ncdm=3.0))
+            outs = [lp.pk, lp.pk_cb, lp.sigma8, lp.h_of_z, lp.da_of_z, lp.rs_drag]
+            if weights is None:
+                weights = [rng.standard_normal(o.shape) / float(o.detach().abs().mean())
+                           for o in outs]
+            lin = sum((torch.as_tensor(w, device=device) * o).sum()
+                      for w, o in zip(weights, outs))
+            loss = lin + 0.5 * lin ** 2
+            xs = [leaves[k] for k in fields]
+            g0 = torch.autograd.grad(loss, xs, retain_graph=True)
+            g = torch.autograd.grad(loss, xs, create_graph=True)
+            assert all(torch.equal(a, b.detach()) for a, b in zip(g0, g))
+            h = torch.autograd.grad(sum(c * gi.sum() for c, gi in zip(u, g)), xs)
+            return [t.cpu() for t in h], dict(_kernels.LAUNCHES)
+
+        want, _ = hessian("cpu")
+        _kernels.reset_launch_counts()
+        got, launches = hessian(cuda)
+    assert launches == dict(eb_solve=1, recomb_scan=1, eb_solve_jvp=1, recomb_scan_jvp=1,
+                            eb_solve_jvp2=1, recomb_scan_jvp2=1)
     for name, g, w in zip(fields, got, want):
         assert torch.isfinite(w).all() and float(w.abs().max()) > 0, name
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-8,

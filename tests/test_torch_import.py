@@ -165,10 +165,11 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
     (dict(boltzmann={"name": "solver"}), "A8"),
 ])
 def test_unported_options_raise_not_implemented(tmp_path, kwargs, match):
-    """What the port still leaves out raises, naming its ROADMAP item: a
-    second derivative through the solver on the card (A8.2: the double
-    backward of its gradient's Function, here on a stand-in for the solver;
-    its first derivative there, A8.1, is ported).  The Einstein-Boltzmann
+    """What the port leaves out raises, naming its ROADMAP item: a third
+    derivative through the solver on the card (a backward of the double
+    backward of its gradient's Function with ``create_graph=True``, here on
+    a stand-in for the solver, names A8.2, the second derivative, which is
+    ported, as are its first, A8.1).  The Einstein-Boltzmann
     solver provider (A8) is ported:
     ``build_provider`` returns a ``SolverProvider``.  The trained-transfer
     emulator provider (A7) is ported: it builds from a
@@ -213,10 +214,14 @@ def test_unported_options_raise_not_implemented(tmp_path, kwargs, match):
                           device="cpu")
     assert isinstance(prov, SolverProvider) and prov.solver.device.type == "cpu"
     h = torch.ones(2, dtype=torch.float64, requires_grad=True)
-    stand_in = types.SimpleNamespace(table_part=lambda par: (2.0 * par.h,))
+    stand_in = types.SimpleNamespace(
+        table_part=lambda par: (2.0 * par.h,),
+        table_hessians=lambda par, names: [torch.zeros(2, 1, 1, dtype=torch.float64)])
     par = types.SimpleNamespace(_replace=lambda **kw: types.SimpleNamespace(**kw))
     (out,) = te._SolverTables.apply(stand_in, par, [2.0 * torch.ones(2, 1, dtype=torch.float64)], ("h",), h)
-    (g,) = torch.autograd.grad(out.sum(), h, retain_graph=True)
-    assert torch.equal(g, 2.0 * torch.ones(2, dtype=torch.float64))
+    (g,) = torch.autograd.grad(out.sum(), h, create_graph=True)
+    assert torch.equal(g.detach(), 2.0 * torch.ones(2, dtype=torch.float64))
+    (hh,) = torch.autograd.grad(g.sum(), h, retain_graph=True)
+    assert torch.equal(hh, torch.zeros(2, dtype=torch.float64))
     with pytest.raises(NotImplementedError, match=match):
-        torch.autograd.grad(out.sum(), h, create_graph=True)
+        torch.autograd.grad(g.sum(), h, create_graph=True)

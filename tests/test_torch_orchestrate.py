@@ -547,9 +547,11 @@ def test_mesh_and_unported_providers_raise(template, tmp_path):
     gloo group gives the mesh-less chain bit for bit, and refuses a mesh on
     another device; the solver provider (A8, once
     listed here) builds on the analysis' device, and on the card only a
-    second derivative through it raises (A8.2: the double backward of its
-    gradient's Function, here on a stand-in for the solver; its gradient
-    there, A8.1, is ported); the ``emulator`` provider (A7, once listed here)
+    third derivative through it raises (a backward of the double backward of
+    its gradient's Function with ``create_graph=True``, here on a stand-in
+    for the solver whose Hessian the Function contracts; its gradient there,
+    A8.1, and its second derivative, A8.2, are ported); the ``emulator``
+    provider (A7, once listed here)
     builds from a ``TransferEmulator.save`` file and a config-built analysis
     on it gives the JAX analysis' ``logp`` (float64, 1e-8)."""
     from eftpipe_tpu_torch.boltzmann import einstein_boltzmann as te
@@ -584,11 +586,16 @@ def test_mesh_and_unported_providers_raise(template, tmp_path):
                                      device="cpu")
     assert isinstance(prov, SolverProvider)
     h = torch.ones(2, dtype=torch.float64, requires_grad=True)
-    stand_in = types.SimpleNamespace(table_part=lambda par: (par.h ** 2,))
+    stand_in = types.SimpleNamespace(
+        table_part=lambda par: (par.h ** 2,),
+        table_hessians=lambda par, names: [2.0 * torch.ones(2, 1, 1, dtype=torch.float64)])
     par = types.SimpleNamespace(_replace=lambda **kw: types.SimpleNamespace(**kw))
     (out,) = te._SolverTables.apply(stand_in, par, [2.0 * h.detach()[:, None]], ("h",), h)
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        torch.autograd.grad(out.sum(), h, create_graph=True)
+    (g,) = torch.autograd.grad(out.sum(), h, create_graph=True)
+    (hh,) = torch.autograd.grad(g.sum(), h, retain_graph=True)
+    assert torch.equal(hh, 2.0 * torch.ones(2, dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="third derivative"):
+        torch.autograd.grad(g.sum(), h, create_graph=True)
     with pytest.raises(ValueError, match="unknown boltzmann"):
         torch_orch.build_provider({"name": "nope"}, cfg, 0.7)
 

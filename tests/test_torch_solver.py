@@ -9,7 +9,12 @@ JAX's), and an analysis on the ``solver`` provider.  Then the gradient's
 forward-mode route, the card's (``einstein_boltzmann._SolverTables``), run
 here over the plain versions under forward AD: its tangent against JAX's,
 its gradient against reverse autograd of the plain path, an analysis'
-∇logp through it, and its refusal of a second derivative (ROADMAP A8.2).
+∇logp through it.  Then its second derivative (ROADMAP A8.2): the jet pass
+(``EBSolver.table_hessians``, the recurrences on ``jet.HyperDual`` operands)
+against JAX's forward-over-forward derivative, the Function's double
+backward against reverse-over-reverse autograd of the plain path, an
+analysis' Hessian through it, the jet helpers and the refusal of a third
+derivative.
 
 On the CPU the kernels' plain versions run (``recomb_scan_plain``,
 ``eb_solve_plain``).  The recombination recurrence is a Python step loop
@@ -30,6 +35,7 @@ import torch
 from eftpipe_tpu.boltzmann import thermo as jt, einstein_boltzmann as je
 from eftpipe_tpu.models.config import EFTConfig as JConfig
 from eftpipe_tpu_torch.boltzmann import thermo as tt, einstein_boltzmann as te
+from eftpipe_tpu_torch.boltzmann import jet as tj
 from eftpipe_tpu_torch.boltzmann.dual import DenseTangents
 from eftpipe_tpu_torch.convert import eb_solver_from_numpy
 from eftpipe_tpu_torch.models.config import EFTConfig as TConfig
@@ -285,27 +291,40 @@ def cut_solvers():
 
 
 @pytest.fixture(scope="module")
-def jax_cut_solve(cut_solvers):
+def jax_cut_jets(cut_solvers):
     """The JAX solve of the cut solver's bucket at the first cosmology, from
-    its ω_cdm through the background, the recombination recurrence and the
-    tables, with its derivative in ω_cdm: one jitted ``jax.jvp``.  For one
-    input, forward mode gives the number ``jax.grad`` does; its trace and
-    compile take half as long as the reverse-mode scan's.  Returns the
-    tables, the solve and the solve's tangent."""
+    its ω_cdm and h through the background, the recombination recurrence
+    and the tables, with its derivative in ω_cdm and the mixed second
+    derivative in ω_cdm and h: one jitted ``jax.jvp`` (in h) of a
+    ``jax.jvp`` (in ω_cdm).  For one input, forward mode gives the number
+    ``jax.grad`` does; its trace and compile take half as long as the
+    reverse-mode scan's.  Returns the tables, the solve, the solve's tangent
+    in ω_cdm and its mixed part."""
     js, _ = cut_solvers
     ((_, grids, masks, oi),) = js.buckets
     p0 = jpar(COSMOS[0])
 
-    def solve(ocdm):
-        p = p0._replace(omega_cdm=ocdm)
+    def solve(ocdm, h):
+        p = p0._replace(omega_cdm=ocdm, h=h)
         bg = jt.background_tables(p, n_grid=CUT_GRID)
         tab = je.make_tables(p, bg, jt.thermo_tables(p, bg, n_fine=0))
         return tab, je.solve_perturbations(p, tab, jnp.asarray(js.k_mpc), jnp.asarray(grids),
                                            jnp.asarray(masks), jnp.asarray(oi))
 
-    x = jnp.asarray(COSMOS[0]["omega_cdm"])
-    (tab, out), (_, dout) = jax.jit(lambda x: jax.jvp(solve, (x,), (jnp.ones_like(x),)))(x)
-    return tab, out, dout
+    def in_ocdm(x, y):
+        return jax.jvp(lambda o: solve(o, y), (x,), (jnp.ones_like(x),))
+
+    x, y = jnp.asarray(COSMOS[0]["omega_cdm"]), jnp.asarray(COSMOS[0]["h"])
+    ((tab, out), (_, dout)), (_, (_, d2out)) = jax.jit(lambda x, y: jax.jvp(
+        lambda h: in_ocdm(x, h), (y,), (jnp.ones_like(y),)))(x, y)
+    return tab, out, dout, d2out
+
+
+@pytest.fixture(scope="module")
+def jax_cut_solve(jax_cut_jets):
+    """The tables, the solve and the solve's tangent in ω_cdm of
+    ``jax_cut_jets``."""
+    return jax_cut_jets[:3]
 
 
 def test_solve_and_zeta_track_match_jax(cut_solvers, jax_cut_solve):
@@ -474,16 +493,6 @@ def test_solver_gradient_matches_plain_reverse(cut_solvers, solver_tangents):
                                    atol=1e-10 * float(w.abs().max()), err_msg=name)
 
 
-def test_double_backward_through_the_solver_raises_naming_a8_2(solver_tangents):
-    """No second derivative through the gradient's Function (ROADMAP A8.2):
-    a backward with ``create_graph=True`` (``Analysis.laplace_cov``'s
-    Hessian) raises, naming it, rather than leave the solver's curvature
-    out of a Hessian."""
-    _, fields, _, out = solver_tangents
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        torch.autograd.grad(out[0].sum(), fields, create_graph=True)
-
-
 def coarse_solver(ts) -> te.EBSolver:
     """``ts`` cut further for the analysis' gradient (the route's cost is
     per operation, so per step): its two lowest modes on a schedule of ln-a
@@ -532,6 +541,183 @@ def test_analysis_gradient_through_the_tangent_route(cut_solvers, tmp_path):
     assert torch.equal(got[0], want[0])
     np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), rtol=1e-8,
                                atol=1e-8 * float(want[1].abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the second derivative (ROADMAP A8.2): the jet pass, the card's route here
+# over the plain recurrences on hyper-dual operands
+# ---------------------------------------------------------------------------
+HESS_FIELDS = ("omega_cdm", "h")
+
+
+def test_solver_hessian_matches_jax_jvp_of_jvp(cut_solvers, jax_cut_jets):
+    """The route's mixed second derivative ∂²/∂ω_cdm∂h of δ_m, δ_cb and ζ_ini
+    at the first cosmology (``EBSolver.table_hessians``: one pass on its
+    three pair rows) against JAX's forward-over-forward derivative of its cut
+    solve (``jax_cut_jets``), every mode and output time, rtol 1e-7;
+    symmetric in the two fields bit for bit.  ζ_ini's mixed part is rounding
+    in both (~1e-21 here, ∝ k²: the O(x²) terms of the adiabatic ζ cancel,
+    x = kτ at the start), so it is held to ζ_ini's own scale over ω_cdm·h."""
+    _, ts = cut_solvers
+    _, out, _, d2out = jax_cut_jets
+    hess = ts.table_hessians(tpar(COSMOS[:1]), HESS_FIELDS)
+    assert len(hess) == 7
+    for i, name in enumerate(("delta_m", "delta_cb", "zeta_ini")):
+        want = np.asarray(getattr(d2out, name))
+        assert np.isfinite(want).all() and np.abs(want).max() > 0, name
+        assert hess[i].shape == (1, 2, 2, *want.shape), name
+        assert torch.equal(hess[i][:, 0, 1], hess[i][:, 1, 0]), name
+        scale = np.abs(want).max()
+        if name == "zeta_ini":
+            scale = np.abs(out.zeta_ini).max() / (COSMOS[0]["omega_cdm"] * COSMOS[0]["h"])
+        np.testing.assert_allclose(hess[i][0, 0, 1].numpy(), want, rtol=1e-7,
+                                   atol=1e-7 * scale, err_msg=name)
+
+
+def test_solver_double_backward_matches_plain_reverse_over_reverse(cut_solvers):
+    """The gradient's Function differentiated twice (``create_graph=True``,
+    then a backward of a seeded combination of the gradient's components) in
+    ω_cdm and h at W=2, of a seeded loss of every output that is nonlinear
+    in them (so the incoming gradient depends on the fields too), against
+    reverse-over-reverse autograd of the plain table part: rtol 1e-9; the
+    gradient with its graph equals the one without it bit for bit.  The
+    solver is ``coarse_solver``'s."""
+    _, ts = cut_solvers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(te, "background_tables",
+                   functools.partial(tt.background_tables, n_grid=COARSE_GRID))
+        double_backward_against_plain(coarse_solver(ts))
+
+
+def double_backward_against_plain(ts):
+    par = tpar(COSMOS)
+    rng = np.random.default_rng(3)
+    u = torch.as_tensor(rng.standard_normal(len(HESS_FIELDS)))
+    weights = None
+
+    def loss(outs):
+        lin = sum((w * o).sum() for w, o in zip(weights, outs))
+        return lin + 0.5 * lin ** 2
+
+    def second(outs, leaves):
+        g = torch.autograd.grad(loss(outs), leaves, create_graph=True)
+        return g, torch.autograd.grad(sum(c * gi.sum() for c, gi in zip(u, g)), leaves)
+
+    fields = [getattr(par, n).clone().requires_grad_() for n in HESS_FIELDS]
+    jac = ts.table_tangents(par, HESS_FIELDS)
+    out = te._SolverTables.apply(ts, par, jac, HESS_FIELDS, *fields)
+    weights = [torch.as_tensor(rng.standard_normal(o.shape)) / o.detach().abs().mean()
+               for o in out]
+    g0 = torch.autograd.grad(loss(out), fields, retain_graph=True)
+    g_got, got = second(out, fields)
+    assert all(torch.equal(a, b.detach()) for a, b in zip(g0, g_got))
+    leaves = [getattr(par, n).clone().requires_grad_() for n in HESS_FIELDS]
+    g_want, want = second(ts.table_part(par._replace(**dict(zip(HESS_FIELDS, leaves)))), leaves)
+    for name, a, b in zip(HESS_FIELDS, g_got, g_want):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=1e-9,
+                                   atol=1e-9 * float(b.abs().max()), err_msg=name)
+    for name, h, w in zip(HESS_FIELDS, got, want):
+        assert torch.isfinite(w).all() and w.abs().max() > 0, name
+        np.testing.assert_allclose(h.numpy(), w.numpy(), rtol=1e-9,
+                                   atol=1e-9 * float(w.abs().max()), err_msg=name)
+
+
+def test_analysis_hessian_through_the_tangent_route(cut_solvers, tmp_path):
+    """``Analysis._hessian`` (the Laplace covariance's) of a float64 analysis
+    on the solver provider through the card's route (its predicate forced:
+    the first derivative by forward AD, the second by the jet pass) against
+    the plain path's double backward: rtol 1e-8 (``logp`` and ∇logp through
+    the route: ``test_analysis_gradient_through_the_tangent_route``; with the
+    gradient's graph, bit for bit the same:
+    ``test_solver_double_backward_matches_plain_reverse_over_reverse``).  The
+    solver is ``coarse_solver``'s."""
+    import eftpipe_tpu_torch.api.orchestrate as torch_orch
+
+    _, ts = cut_solvers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(te, "background_tables",
+                   functools.partial(tt.background_tables, n_grid=COARSE_GRID))
+        mp.setattr(torch_orch, "EFTConfig", functools.partial(TConfig, nfft_loop=64, nkin=80))
+        an = torch_orch.Analysis.from_config(solver_analysis_info(coarse_solver(ts), tmp_path),
+                                             dtype=torch.float64, device="cpu", quadform="plain")
+        theta0 = np.asarray(an.space.theta0())
+        want = an._hessian(theta0)
+        mp.setattr(te, "_tangent_route", on_the_tangent_route)
+        got = an._hessian(theta0)
+    assert np.isfinite(want).all() and want.shape == (theta0.size,) * 2
+    np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-8 * np.abs(want).max())
+
+
+def test_jet_helpers():
+    """``jet.jet_call`` (nested ``torch.func.jvp``) and ``jet.HyperDual`` on a
+    stage of known closed form, f(x, y) = (x² y, eˣ √y / x): the value, both
+    first-order parts and the mixed part f''[u_p, u_q] + f'·u_pq; and the
+    layout of ``pair_rows`` and ``hessian_of`` (W=2, P=3: six pairs a
+    cosmology, (0,0), (0,1), (0,2), (1,1), (1,2), (2,2))."""
+    rng = np.random.default_rng(8)
+    x, y, xa, ya, xb, yb, xab, yab = (torch.as_tensor(rng.uniform(0.5, 2.0, 5))
+                                      for _ in range(8))
+
+    def f(x, y):
+        return x ** 2 * y, torch.exp(x) * torch.sqrt(y) / x
+
+    # closed form: gradients and Hessians of both components
+    e, r = torch.exp(x), torch.sqrt(y)
+    grads = [(2 * x * y, x ** 2), (e * r * (x - 1) / x ** 2, e / (2 * r * x))]
+    hesss = [((2 * y, 2 * x), (2 * x, 0 * x)),
+             ((e * r * (x ** 2 - 2 * x + 2) / x ** 3, e * (x - 1) / (2 * r * x ** 2)),
+              (e * (x - 1) / (2 * r * x ** 2), -e / (4 * r ** 3 * x)))]
+    u, ua, ub, uab = (x, y), (xa, ya), (xb, yb), (xab, yab)
+    want = [(fi, gx * xa + gy * ya, gx * xb + gy * yb,
+             sum(hij * ui * vj for hi, ui in zip(h, ua) for hij, vj in zip(hi, ub))
+             + gx * xab + gy * yab)
+            for fi, (gx, gy), h in zip(f(x, y), grads, hesss)]
+    nested = tj.jet_call(f, tj.Jet(u, ua, ub, uab))
+    hd = tj.as_jet(f(*tj.hyper(tj.Jet(u, ua, ub, uab))))
+    for got in (nested, hd):
+        for k in range(2):
+            for part in range(4):
+                np.testing.assert_allclose(got[part][k].numpy(), want[k][part].numpy(),
+                                           rtol=1e-13, err_msg=f"output {k} part {part}")
+    values = {"h": torch.tensor([0.6, 0.7], dtype=torch.float64),
+              "omega_b": torch.tensor([0.02, 0.03], dtype=torch.float64),
+              "ns": torch.tensor([0.9, 1.0], dtype=torch.float64)}
+    rows, jet = tj.pair_rows(values, ("h", "omega_b", "ns"), values["h"])
+    pr = tj.pairs(3)
+    assert pr == [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]
+    assert torch.equal(rows["h"], torch.tensor([0.6] * 6 + [0.7] * 6, dtype=torch.float64))
+    for i in range(3):
+        assert torch.equal(jet.v[i], rows[("h", "omega_b", "ns")[i]])
+        assert jet.a[i].tolist() == [float(p == i) for p, _ in pr] * 2
+        assert jet.b[i].tolist() == [float(q == i) for _, q in pr] * 2
+        assert not jet.ab[i].any()
+    mixed = torch.arange(12, dtype=torch.float64)[:, None] * torch.ones(1, 4)
+    h = tj.hessian_of(mixed, 2, 3)
+    assert h.shape == (2, 3, 3, 4) and torch.equal(h, h.transpose(1, 2))
+    for w in range(2):
+        for k, (p, q) in enumerate(pr):
+            assert float(h[w, p, q, 0]) == 6 * w + k
+
+
+def test_third_derivative_through_the_solver_raises_naming_the_order():
+    """The gradient's Function differentiates twice (its Hessian from the
+    solver's ``table_hessians``, here a stand-in's) and no more: a backward
+    of the gradient with ``create_graph=True`` (a third derivative) raises,
+    naming the order, rather than leave the solver's third derivative out."""
+    import types
+
+    h = torch.tensor([0.5, 2.0], dtype=torch.float64, requires_grad=True)
+    stand_in = types.SimpleNamespace(
+        table_part=lambda par: (par.h ** 3,),
+        table_hessians=lambda par, names: [6.0 * par.h[:, None, None]])
+    par = types.SimpleNamespace(h=h.detach(), _replace=lambda **kw: types.SimpleNamespace(**kw))
+    (out,) = te._SolverTables.apply(stand_in, par, [3.0 * h.detach()[:, None] ** 2], ("h",), h)
+    (g,) = torch.autograd.grad(out.sum(), h, create_graph=True)
+    assert torch.equal(g.detach(), 3.0 * h.detach() ** 2)
+    (hh,) = torch.autograd.grad(g.sum(), h, retain_graph=True)
+    assert torch.equal(hh, 6.0 * h.detach())
+    with pytest.raises(NotImplementedError, match="third derivative"):
+        torch.autograd.grad(g.sum(), h, create_graph=True)
 
 
 @pytest.mark.parametrize("tca", [True, False])
