@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build + kernel checks at small depth only
     python3 chip_smoke.py --out DIR  # also write chip_smoke.json and ptxas.log to DIR
     python3 chip_smoke.py --against DIR  # also time DIR/quadform.cu's float64 kernels
-                                         # and DIR/boltzmann.cu's eb_solve, eb_solve_jvp
+                                         # and DIR/boltzmann.cu's six solver kernels
 
 Phases, each printing one JSON line:
 
@@ -114,7 +114,12 @@ Phases, each printing one JSON line:
    microseconds a step of the longest mode (``us_per_step_longest``); (d) a
    float32 LRG ``Analysis`` on the ``solver`` provider at W=4:
    finite ``logp`` and the launches of ``eb_solve``, ``recomb_scan`` and
-   ``qf_real`` in one ``logp`` call.
+   ``qf_real`` in one ``logp`` call; (f) the recurrence by phase
+   (``recomb_phases``): ``recomb_scan`` on (e)'s W=4 batch and
+   ``recomb_scan_jvp`` on its W·P = 8 rows in (ω_cdm, h), each timed once
+   on the fine grid cut at the batch's first Peebles step (the Saha block
+   alone) and once whole: µs a step in the Saha block and after it, the
+   block's steps.
 10b. ``solver_grad`` — the solver's gradient on the card (forward mode: the
    tangent kernels ``recomb_scan_jvp`` and ``eb_solve_jvp``, the same source
    as the forward kernels on a dual number, driven by
@@ -198,11 +203,17 @@ copied into a git-ignored directory) is built there and its float64 kernels
 are checked and timed beside this tree's at the timed float64 shapes, in
 turns (theirs, ours, ours, theirs) on the same inputs.  Where DIR holds a
 ``boltzmann.cu`` of the same C interface, it is built into the build
-directory, and its ``eb_solve`` is timed beside this tree's in the same
-turns at each W of the ``solver`` phase's (e), its ``eb_solve_jvp`` at the
-W·P rows of ``solver_grad``'s (e), each with its largest difference from
-ours (``against`` entries of those lines; their registers and spills in
-the ``against_build`` line).
+directory, and its kernels are timed beside this tree's in the same
+turns: ``eb_solve`` and ``recomb_scan`` at each W of the ``solver`` phase's
+(e), ``eb_solve_jvp``, ``eb_solve`` and ``recomb_scan_jvp``,
+``recomb_scan`` at the W·P rows of ``solver_grad``'s (e), ``eb_solve_jvp2``
+and ``recomb_scan_jvp2`` on the W·Q rows of ``solver_hessian``'s (e), each
+with its speedup and its largest difference from ours, absolute and
+relative to each output's largest |value| (the recurrence's also whether
+its Saha block is the same bits); ``against`` entries of those lines, the
+recurrence's phase split in (f) too; their registers and spills in the
+``against_build`` line.  A ``boltzmann.cu`` that includes headers needs
+them beside it (copy the commit's ``csrc/``).
 
 14. ``kernels`` line (launches by path, ``training`` and ``mesh`` among
    them; every kernel instance, float32 and float64 ``qf_real`` and
@@ -1530,8 +1541,12 @@ def analysis_phase(lines: list) -> dict:
 # three Peebles rates, two implicit solves); eb_solve ~5,700 an RK4 step
 # (four right-hand sides of ~840: the metric ~50, photons and polarization
 # ~225, massless neutrinos ~115, massive neutrinos ~440; the RK4 sums ~2,200
-# over 100 state entries; two table interpolations ~130)
+# over 100 state entries; two table interpolations ~130).  A step of the
+# Saha block needs ~30 of recomb_scan's (csrc/recomb.cuh: x_H, x_e and T_M's
+# exponential step, pow and exp once each): a bound counts each row's block
+# at that where its inputs are given.
 RECOMB_OPS_PER_STEP = 225
+RECOMB_OPS_SAHA_STEP = 30
 EB_OPS_PER_STEP = 5700
 # the rate at which the solver line models one thread's critical path (a
 # model, not a measurement; the kernels line carries no such figure): one
@@ -1651,8 +1666,13 @@ def warp_step_model(sched, dual: bool = False) -> dict:
                 model_us_per_step=ms * 1e3 / max(tca + post, 1))
 
 
-def recomb_bound(nw: int, n: int, dual: bool = False, hyper: bool = False) -> dict:
-    ops = nw * n * RECOMB_OPS_PER_STEP * ops_factor(dual, hyper)
+def recomb_bound(nw: int, n: int, dual: bool = False, hyper: bool = False,
+                 saha=None) -> dict:
+    """``saha``: each row's Saha block (``saha_block``), whose steps count
+    ``RECOMB_OPS_SAHA_STEP``; without it every step counts the full step's."""
+    saha_steps = sum(saha) if saha is not None else 0
+    ops = ((nw * n - saha_steps) * RECOMB_OPS_PER_STEP + saha_steps * RECOMB_OPS_SAHA_STEP
+           ) * ops_factor(dual, hyper)
     t_ops = ops / FMA_FLOPS[torch.float64] * 1e3
     # five (W, n) inputs and f_He in, three (W, n) out; each with its tangent
     # (its three parts)
@@ -1675,9 +1695,11 @@ def eb_bytes(tab, dsched: dict, nz: int, nk: int, dual: bool = False,
 
 class AgainstSolver:
     """Another ``boltzmann.cu`` with this tree's C interface (for example the
-    parent commit's, copied into a git-ignored directory), built into the
-    build directory; its ``eb_solve`` and ``eb_solve_jvp`` launched on the
-    inputs of this tree's wrappers, uncounted."""
+    parent commit's, copied into a git-ignored directory with the headers it
+    includes), built into the build directory; its kernels launched on the
+    inputs of this tree's wrappers, uncounted.  Its recurrence takes a
+    workspace where it exports ``eft_recomb_work_bytes`` (this tree's
+    interface), none where it does not (before the pre-pass)."""
 
     def __init__(self, src_dir: str):
         import ctypes
@@ -1692,12 +1714,28 @@ class AgainstSolver:
                              f"{res.stdout}{res.stderr}")
         self.ptxas = ptxas_summary(res.stdout + res.stderr)
         self.lib = ctypes.CDLL(str(lib_path))
-        ptr, i = ctypes.c_void_p, ctypes.c_int
+        ptr, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         self.lib.eft_eb_solve.argtypes = [ptr] * 11 + [i] * 5 + [ptr]
         self.lib.eft_eb_solve_jvp.argtypes = [ptr] * 13 + [i] * 5 + [ptr]
+        self.lib.eft_eb_solve_jvp2.argtypes = [ptr] * 13 + [i] * 5 + [ptr]
+        # the recurrence takes a workspace where the library sizes one
+        self.work = hasattr(self.lib, "eft_recomb_work_bytes")
+        w = int(self.work)
+        self.lib.eft_recomb_scan.argtypes = [ptr] * (7 + w) + [i] * 2 + [d, ptr]
+        self.lib.eft_recomb_scan_jvp.argtypes = [ptr] * (14 + w) + [i] * 2 + [d, ptr]
+        self.lib.eft_recomb_scan_jvp2.argtypes = [ptr] * (14 + w) + [i] * 2 + [d, ptr]
+        if self.work:
+            self.lib.eft_recomb_work_bytes.argtypes = [i] * 3
+            self.lib.eft_recomb_work_bytes.restype = ctypes.c_size_t
 
-    def _launch(self, fn, *tensors, ints):
-        code = fn(*(t.data_ptr() for t in tensors), *ints,
+    def _work(self, parts: int, nw: int, n: int) -> list:
+        if not self.work:
+            return []
+        nbytes = int(self.lib.eft_recomb_work_bytes(parts, nw, n))
+        return [torch.empty(nbytes, dtype=torch.uint8, device="cuda")]
+
+    def _launch(self, fn, *tensors, ints, doubles=()):
+        code = fn(*(t.data_ptr() for t in tensors), *ints, *doubles,
                   torch.cuda.current_stream().cuda_stream)
         if code != 0:
             raise SystemExit(f"chip_smoke: --against kernel failed to launch ({code})")
@@ -1720,24 +1758,122 @@ class AgainstSolver:
                      dout, ints=(nw, nm, nk, nz, ng))
         return eb._eb_outputs(out, nw, nz, nk), eb._eb_outputs(dout, nw, nz, nk)
 
+    def eb_solve_jvp2(self, tab, parts, dsched: dict, nk: int):
+        nw, ng = eb._check_eb(tab, dsched)
+        nm, nz = dsched["out_idx"].shape
+        out = torch.zeros((2 * nw * nz * nk + nw * nk,), dtype=torch.float64, device="cuda")
+        dout = torch.zeros((out.shape[0], 3), dtype=torch.float64, device="cuda")
+        self._launch(self.lib.eft_eb_solve_jvp2, tab.stacked.transpose(1, 2).contiguous(),
+                     torch.stack(tuple(parts), -1).transpose(1, 2).contiguous(),
+                     *eb._eb_args(tab, dsched), out, dout, ints=(nw, nm, nk, nz, ng))
+        return jet.Jet(tuple(eb._eb_outputs(out, nw, nz, nk)),
+                       *(tuple(eb._eb_outputs(p, nw, nz, nk)) for p in dout.unbind(-1)))
 
-def in_turns(theirs, ours) -> dict:
-    """``theirs`` and ``ours`` (callables returning a ``PerturbOut``, or
-    such pairs) timed in turns (theirs, ours, ours, theirs), and the largest
-    difference of their outputs, absolute and relative to each output's
-    largest |value|.  Launches of this tree's kernels are not counted."""
+    def recomb_scan(self, ins, dlna: float):
+        nw, n = ins[0].shape
+        out = torch.empty((3, nw, n), dtype=torch.float64, device="cuda")
+        self._launch(self.lib.eft_recomb_scan, *ins, out, *self._work(0, nw, n), ints=(nw, n),
+                     doubles=(dlna,))
+        return tuple(out.unbind(0))
+
+    def recomb_scan_jvp(self, ins, tans, dlna: float):
+        nw, n = ins[0].shape
+        out = torch.empty((3, nw, n), dtype=torch.float64, device="cuda")
+        dout = torch.empty_like(out)
+        self._launch(self.lib.eft_recomb_scan_jvp, *ins, *tans, out, dout, *self._work(1, nw, n),
+                     ints=(nw, n), doubles=(dlna,))
+        return tuple(out.unbind(0)), tuple(dout.unbind(0))
+
+    def recomb_scan_jvp2(self, ins, dlna: float):
+        vals = [t.contiguous() for t in ins.v]
+        parts = [torch.stack(p, -1).contiguous() for p in zip(ins.a, ins.b, ins.ab)]
+        nw, n = vals[0].shape
+        out = torch.empty((3, nw, n), dtype=torch.float64, device="cuda")
+        dout = torch.empty((3, nw, n, 3), dtype=torch.float64, device="cuda")
+        self._launch(self.lib.eft_recomb_scan_jvp2, *vals, *parts, out, dout,
+                     *self._work(3, nw, n), ints=(nw, n), doubles=(dlna,))
+        return jet.Jet(tuple(out.unbind(0)), *(tuple(dout[..., i].unbind(0)) for i in range(3)))
+
+
+def in_turns(theirs, ours, block: int | None = None) -> dict:
+    """``theirs`` and ``ours`` (callables returning a ``PerturbOut``, a
+    tuple of tensors, or such pairs or jets) timed in turns (theirs, ours,
+    ours, theirs) after a call of each, and the largest difference of their
+    outputs, absolute and relative to each output's largest |value|;
+    ``block``: whether the outputs' first ``block`` steps (the recurrence's
+    Saha block) are the same bits.  Launches of this tree's kernels are not
+    counted."""
     saved = dict(bk.LAUNCHES)
+    theirs(), ours()  # a first call of each loads its module
     turns = [timed(fn)[1] for fn in (theirs, ours, ours, theirs)]
     got, want = ours(), theirs()
     bk.LAUNCHES.update(saved)
-    def flat(o):  # a PerturbOut, or (outputs, tangents)
+    def flat(o):  # a PerturbOut or a tuple of tensors, or (outputs, tangents), or a jet
         return [t for part in (o if isinstance(o[0], tuple) else (o,)) for t in part]
 
     pairs = list(zip(flat(got), flat(want)))
-    return dict(their_ms=[turns[0], turns[3]], ms=[turns[1], turns[2]],
-                speedup=(turns[0] + turns[3]) / (turns[1] + turns[2]),
-                max_abs_diff=max(float((g - w).abs().max()) for g, w in pairs),
-                max_rel_diff=max(rel_err(g, w) for g, w in pairs if float(w.abs().max()) > 0))
+    row = dict(their_ms=[turns[0], turns[3]], ms=[turns[1], turns[2]],
+               speedup=(turns[0] + turns[3]) / (turns[1] + turns[2]),
+               max_abs_diff=max(float((g - w).abs().max()) for g, w in pairs),
+               max_rel_diff=max(rel_err(g, w) for g, w in pairs if float(w.abs().max()) > 0))
+    if block is not None:
+        row["saha_block_steps"] = block
+        row["saha_block_bitwise"] = all(bool(torch.equal(g[..., :block], w[..., :block]))
+                                        for g, w in pairs)
+    return row
+
+
+def saha_block(x_saha) -> list:
+    """Each row's Saha block: its steps before the first whose x_Saha is not
+    above 0.999 (the recurrence's test)."""
+    leave = ~(x_saha > 0.999)
+    return [int(r.nonzero()[0]) if bool(r.any()) else int(x_saha.shape[-1]) for r in leave]
+
+
+def cut_steps(ins, n: int) -> list:
+    """The recurrence's six inputs (or their tangents) cut to their first
+    ``n`` steps."""
+    return [t[..., :n].contiguous() for t in ins[:5]] + [ins[5]]
+
+
+def recomb_phases(par, against=None) -> dict:
+    """(f): µs a step of ``recomb_scan`` (the W cosmologies of ``par``) and
+    ``recomb_scan_jvp`` (their W·P rows in ``HESS_FIELDS``, as the solver's
+    gradient seeds them) on the fine grid in the Saha block and after it:
+    one launch on the grid cut at the batch's first Peebles step (the Saha
+    block alone), one on the whole grid, after one warm-up each; and the
+    same for ``against``'s kernels.  Launches are not counted."""
+    saved = dict(bk.LAUNCHES)
+    f_bg = thermo.background_tables(par, n_grid=thermo.N_FINE)
+    ins = [t.contiguous() for t in thermo.recomb_inputs(par, f_bg)]
+    dlna = thermo.scan_step(f_bg)
+    with forward_ad.dual_level(), DenseTangents():
+        dpar = eb.tangent_rows(par, HESS_FIELDS)
+        d_ins = thermo.recomb_inputs(dpar, thermo.background_tables(dpar, n_grid=thermo.N_FINE))
+        prim = [primal(t).contiguous() for t in d_ins]
+        tans = [tangent_or_zeros(t).contiguous() for t in d_ins]
+    n = thermo.N_FINE
+    ends = saha_block(ins[3])
+    nb = min(ends)
+    runs = {"recomb_scan": ((ins,), lambda a: thermo.recomb_scan_cuda(*a, dlna),
+                            against and (lambda a: against.recomb_scan(a, dlna))),
+            "recomb_scan_jvp": ((prim, tans), lambda a, t: thermo.recomb_scan_jvp_cuda(a, t, dlna),
+                                against and (lambda a, t: against.recomb_scan_jvp(a, t, dlna)))}
+    out = dict(W=int(par.h.shape[0]), rows_jvp=len(prim[0]), fields_jvp=list(HESS_FIELDS), n=n,
+               saha_steps=nb, saha_steps_by_row=ends, peebles_steps=n - nb)
+    for name, (args, ours, theirs) in runs.items():
+        cut = [cut_steps(a, nb) for a in args]
+        out[name] = {}
+        for who, fn in (("ours", ours), ("theirs", theirs)):
+            if not fn:
+                continue
+            _, block_ms = timed(lambda: fn(*cut), warmup=1)
+            _, full_ms = timed(lambda: fn(*args), warmup=1)
+            out[name][who] = dict(block_ms=block_ms, full_ms=full_ms,
+                                  us_per_step_saha=block_ms * 1e3 / nb,
+                                  us_per_step_peebles=(full_ms - block_ms) * 1e3 / (n - nb))
+    bk.LAUNCHES.update(saved)
+    return out
 
 
 def solver_check_recomb(nw: int = 4, n_fine: int = 4096) -> dict:
@@ -1752,7 +1888,7 @@ def solver_check_recomb(nw: int = 4, n_fine: int = 4096) -> dict:
     row = dict(W=nw, n=n_fine, max_rel_err=err, budget=SOLVER_REL_BUDGET["recomb_scan"],
                ms=ms, plain_ms=plain_ms, max_abs_err=max(float((g - r).abs().max())
                                                          for g, r in zip(got, ref)))
-    row.update(recomb_bound(nw, n_fine))
+    row.update(recomb_bound(nw, n_fine, saha=saha_block(ins[3])))
     return row
 
 
@@ -1899,7 +2035,8 @@ def solver_analysis(nw: int) -> tuple[dict, dict]:
 def solver_phase(lines: list, out_dir=None, against=None) -> dict:
     """Phase 10: the Einstein-Boltzmann solver.  Returns the launches of its
     paths, the ``qf_real`` shapes of its analysis and its kernels' rows.
-    ``against``: an :class:`AgainstSolver` timed beside ``eb_solve`` in (e)."""
+    ``against``: an :class:`AgainstSolver` timed beside ``eb_solve`` and
+    ``recomb_scan`` in (e) and (f)."""
     t_phase = time.perf_counter()
     out, by_path = {}, {}
     # (c) first: the golden's recipe (the envelope over the corners of the
@@ -1951,12 +2088,18 @@ def solver_phase(lines: list, out_dir=None, against=None) -> dict:
                          us_per_step_longest=eb_ms * 1e3 / int(sched.steps.max()),
                          eb_solve=eb_bound(int(sched.steps.sum()) * nw, int(sched.steps.max()),
                                            eb_bytes(tab, dsched, nz, nk)),
-                         recomb_scan=recomb_bound(nw, thermo.N_FINE))
+                         recomb_scan=recomb_bound(nw, thermo.N_FINE, saha=saha_block(ins[3])))
         if against is not None:
-            times[nw]["against"] = in_turns(lambda: against.eb_solve(tab, dsched, nk),
-                                            lambda: eb.eb_solve_cuda(tab, dsched, nk))
+            times[nw]["against"] = dict(
+                eb_solve=in_turns(lambda: against.eb_solve(tab, dsched, nk),
+                                  lambda: eb.eb_solve_cuda(tab, dsched, nk)),
+                recomb_scan=in_turns(lambda: against.recomb_scan(ins, dlna),
+                                     lambda: thermo.recomb_scan_cuda(*ins, dlna),
+                                     block=min(saha_block(ins[3]))))
     by_path["solver_times"] = dict(bk.LAUNCHES)
     out["times"] = times
+    # (f): the recurrence by phase, on (e)'s W=4 batch
+    out["recomb_phases"] = recomb_phases(box_batch(box_draws(4, seed=104)), against)
 
     # (d): the solver provider end to end (its launches are the main path's)
     res, qf_shapes = solver_analysis(4)
@@ -2094,7 +2237,7 @@ def grad_check_recomb(nw: int = 4, n_fine: int = 4096) -> dict:
                      "copied to the host",
                max_abs_err=max(float((g - r.tangent).abs().max()) for g, r in zip(dgot, ref)),
                finite=all(bool(torch.isfinite(r.tangent).all()) for r in ref))
-    row.update(recomb_bound(nw, n_fine, dual=True))
+    row.update(recomb_bound(nw, n_fine, dual=True, saha=saha_block(prim[3])))
     return row
 
 
@@ -2268,7 +2411,7 @@ def grad_times(an, solver, against=None) -> tuple[dict, dict, dict]:
     the rows of its tangent pass (W·P, P the differentiated table fields, as
     ``EBSolver.table_tangents`` seeds them), beside the forward kernels on
     the same rows, their bounds, µs a step of the longest mode and the warp
-    step model; ``against``'s ``eb_solve_jvp`` in turns with ours."""
+    step model; ``against``'s four kernels of those rows in turns with ours."""
     theta0 = np.asarray(an.space.theta0(), np.float64)
     prov = an.providers["LRG"]
     bk.reset_launch_counts()
@@ -2313,13 +2456,19 @@ def grad_times(an, solver, against=None) -> tuple[dict, dict, dict]:
                              eb_solve=warp_step_model(sched)),
         eb_solve_jvp=eb_bound(int(sched.steps.sum()) * rows, int(sched.steps.max()),
                               eb_bytes(ptab, dsched, nz, nk, dual=True), dual=True),
-        recomb_scan_jvp=recomb_bound(rows, thermo.N_FINE, dual=True))
+        recomb_scan_jvp=recomb_bound(rows, thermo.N_FINE, dual=True, saha=saha_block(prim[3])))
     if against is not None:
+        block = min(saha_block(prim[3]))
         times[nw]["against"] = dict(
             eb_solve_jvp=in_turns(lambda: against.eb_solve_jvp(ptab, d_stacked, dsched, nk),
                                   lambda: eb.eb_solve_jvp_cuda(ptab, d_stacked, dsched, nk)),
             eb_solve=in_turns(lambda: against.eb_solve(ptab, dsched, nk),
-                              lambda: eb.eb_solve_cuda(ptab, dsched, nk)))
+                              lambda: eb.eb_solve_cuda(ptab, dsched, nk)),
+            recomb_scan_jvp=in_turns(lambda: against.recomb_scan_jvp(prim, tans, dlna),
+                                     lambda: thermo.recomb_scan_jvp_cuda(prim, tans, dlna),
+                                     block=block),
+            recomb_scan=in_turns(lambda: against.recomb_scan(prim, dlna),
+                                 lambda: thermo.recomb_scan_cuda(*prim, dlna), block=block))
     return times, dict(bk.LAUNCHES), dict(qf.LAUNCHES_BY_SHAPE)
 
 
@@ -2448,7 +2597,7 @@ def hess_check_recomb(nw: int = 2, n: int = 1024) -> dict:
                plain="recomb_scan_plain on jet.HyperDual operands, the inputs copied to the host",
                max_abs_err=abs_err,
                finite=all(bool(torch.isfinite(t).all()) for p in want for t in p))
-    row.update(recomb_bound(len(rows["h"]), n, hyper=True))
+    row.update(recomb_bound(len(rows["h"]), n, hyper=True, saha=saha_block(ins.v[3])))
     return row
 
 
@@ -2515,7 +2664,7 @@ class KernelRecorder:
         setattr(self.module, self.name, self.fn)
 
 
-def hess_fd_check(an) -> tuple[dict, dict]:
+def hess_fd_check(an, against=None) -> tuple[dict, dict]:
     """(b), (c) and (e): ``Analysis._hessian`` at θ₀ of the float64 analysis
     through the kernels, its launches and seconds (the first call, then
     another), each row against central differences of ∇logp (every
@@ -2524,7 +2673,7 @@ def hess_fd_check(an) -> tuple[dict, dict]:
     the gradient's graph (``create_graph=True``) against without it, bit for
     bit, ∇logp within ``HESS_GRAPH_GRAD_BUDGET``, and the launches of a
     value and gradient; the second-order kernels timed again on the inputs
-    the Hessian gave them."""
+    the Hessian gave them, and in turns with ``against``'s."""
     theta0 = np.asarray(an.space.theta0(), np.float64)
     ndim = theta0.size
     bk.reset_launch_counts()
@@ -2574,7 +2723,15 @@ def hess_fd_check(an) -> tuple[dict, dict]:
             eb_solve_jvp2=eb_ms * 1e3 / longest, eb_solve=eb_fwd_ms * 1e3 / longest),
         eb_solve_jvp2=eb_bound(int(sched.steps.sum()) * nrows, longest,
                                eb_bytes(tab, dsched, nz, nk, hyper=True), hyper=True),
-        recomb_scan_jvp2=recomb_bound(nrows, ins.v[0].shape[-1], hyper=True))
+        recomb_scan_jvp2=recomb_bound(nrows, ins.v[0].shape[-1], hyper=True,
+                                      saha=saha_block(ins.v[3])))
+    if against is not None:
+        times["against"] = dict(
+            recomb_scan_jvp2=in_turns(lambda: against.recomb_scan_jvp2(ins, dlna),
+                                      lambda: thermo.recomb_scan_jvp2_cuda(ins, dlna),
+                                      block=min(saha_block(ins.v[3]))),
+            eb_solve_jvp2=in_turns(lambda: against.eb_solve_jvp2(tab, parts, dsched, nk),
+                                   lambda: eb.eb_solve_jvp2_cuda(tab, parts, dsched, nk)))
     # central differences of the gradient: every row, step and sign in one batch
     steps = np.array(FD_STEPS)[:, None] * np.abs(theta0)[None]                # (S, ndim)
     shifted = np.repeat(np.repeat(theta0[None, None, None], len(FD_STEPS), 0), ndim, 1)
@@ -2672,7 +2829,7 @@ def hess_laplace(an64, an32) -> tuple[dict, dict, dict]:
     return out, launches["float64"], dict(bk.LAUNCHES)
 
 
-def solver_hessian_phase(solver, an64, an32, lines: list) -> dict:
+def solver_hessian_phase(solver, an64, an32, lines: list, against=None) -> dict:
     """Phase 10c: the solver's second derivative on the card
     (``solver_hessian`` line).  ``solver``: the 4-D recipe solver, for (a);
     ``an64``, ``an32``: ``solver_grad``'s analyses.  Returns the solver
@@ -2682,7 +2839,7 @@ def solver_hessian_phase(solver, an64, an32, lines: list) -> dict:
     out, by_path, qf_paths = {}, {}, {}
     out["recomb_check"] = hess_check_recomb()
     out["eb_check"] = hess_check_eb(solver)
-    out["hessian"], qf_paths["solver_hessian_fd"] = hess_fd_check(an64)
+    out["hessian"], qf_paths["solver_hessian_fd"] = hess_fd_check(an64, against)
     by_path["solver_hessian_fd"] = out["hessian"]["fd_launches"]
     out["laplace"], by_path["solver_hessian"], by_path["solver_hmc_laplace"] = hess_laplace(
         an64, an32)
@@ -2987,7 +3144,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--against", default=None,
                     help="directory holding another quadform.cu (its float64 kernels) and/or "
-                         "boltzmann.cu (its eb_solve, eb_solve_jvp), timed beside this tree's")
+                         "boltzmann.cu (its six solver kernels), timed beside this tree's")
     ap.add_argument("--out", default=None,
                     help="directory that receives chip_smoke.json and ptxas.log")
     args = ap.parse_args()
@@ -3088,7 +3245,7 @@ def main() -> None:
     grad = solver_grad_phase(box, lines, against)
     by_path.update(grad["qf_paths"])
     solver["by_path"].update(grad["by_path"])
-    hess = solver_hessian_phase(box, grad.pop("an64"), grad.pop("an32"), lines)
+    hess = solver_hessian_phase(box, grad.pop("an64"), grad.pop("an32"), lines, against)
     del box
     by_path.update(hess["qf_paths"])
     solver["by_path"].update(hess["by_path"])

@@ -5,9 +5,11 @@ kernels ``recomb_scan_jvp2`` and ``eb_solve_jvp2``).
 
 The library is built by :mod:`eftpipe_tpu_torch.ops._build` at the first
 launch, never at import.  Each C function takes its tensors' pointers, then
-its ints, then its doubles, then the stream, enqueues one kernel and returns
-``cudaGetLastError()``; a non-zero code raises here.  ``LAUNCHES`` counts the
-launches of each kernel since the last :func:`reset_launch_counts`.
+its ints, then its doubles, then the stream, enqueues its kernels (the
+recurrence: a pre-pass and the chain, with a scratch tensor the wrapper
+allocates) and returns the first CUDA error; a non-zero code raises here.
+``LAUNCHES`` counts the launches of each kernel (one a wrapper call) since
+the last :func:`reset_launch_counts`.
 """
 
 from __future__ import annotations
@@ -39,6 +41,19 @@ def _fn(name: str, nptr: int, nint: int, ndbl: int):
         lib.eft_boltzmann_error_string.restype = ctypes.c_char_p
         _FUNCS[name] = (lib, fn)
     return _FUNCS[name]
+
+
+def recomb_work(parts: int, nw: int, n: int, device) -> torch.Tensor:
+    """The scratch of one launch of the recurrence (``recomb_scan``: ``parts``
+    0, ``recomb_scan_jvp``: 1, ``recomb_scan_jvp2``: 3): the pre-pass's
+    records, sized by the library (``eft_recomb_work_bytes``)."""
+    if "recomb_work_bytes" not in _FUNCS:
+        lib = _build.load("boltzmann")
+        lib.eft_recomb_work_bytes.argtypes = [ctypes.c_int] * 3
+        lib.eft_recomb_work_bytes.restype = ctypes.c_size_t
+        _FUNCS["recomb_work_bytes"] = lib.eft_recomb_work_bytes
+    return torch.empty(int(_FUNCS["recomb_work_bytes"](parts, nw, n)), dtype=torch.uint8,
+                       device=device)
 
 
 def check(name, t, shape, like) -> None:

@@ -462,10 +462,12 @@ def _check_recomb(tg, nh, hs, x_saha, he_term, f_he):
 
 
 def recomb_scan_cuda(tg, nh, hs, x_saha, he_term, f_he, dlna: float):
-    """Launch ``recomb_scan`` (one thread per cosmology walks the grid)."""
+    """Launch ``recomb_scan`` (a parallel pre-pass of the input-only terms,
+    then one thread per cosmology walks the grid)."""
     nw, n = _check_recomb(tg, nh, hs, x_saha, he_term, f_he)
     out = torch.empty((3, nw, n), dtype=F64, device=tg.device)
-    _kernels.launch("recomb_scan", tg.device, tg, nh, hs, x_saha, he_term, f_he, out,
+    work = _kernels.recomb_work(0, nw, n, tg.device)
+    _kernels.launch("recomb_scan", tg.device, tg, nh, hs, x_saha, he_term, f_he, out, work,
                     ints=(nw, n), doubles=(float(dlna),))
     return out[0], out[1], out[2]
 
@@ -480,7 +482,8 @@ def recomb_scan_jvp_cuda(inputs, tangents, dlna: float):
         _kernels.check(f"tangent of {name}", t, like.shape, like)
     out = torch.empty((3, nw, n), dtype=F64, device=inputs[0].device)
     dout = torch.empty_like(out)  # (a base of its own: a tangent has its primal's layout)
-    _kernels.launch("recomb_scan_jvp", inputs[0].device, *inputs, *tangents, out, dout,
+    work = _kernels.recomb_work(1, nw, n, out.device)
+    _kernels.launch("recomb_scan_jvp", inputs[0].device, *inputs, *tangents, out, dout, work,
                     ints=(nw, n), doubles=(float(dlna),))
     return (out[0], out[1], out[2]), (dout[0], dout[1], dout[2])
 
@@ -528,7 +531,8 @@ def recomb_scan_jvp2_cuda(jet: Jet, dlna: float) -> Jet:
         _kernels.check(f"parts of {name}", t, (*like.shape, 3), like)
     out = torch.empty((3, nw, n), dtype=F64, device=inputs[0].device)
     dout = torch.empty((3, nw, n, 3), dtype=F64, device=inputs[0].device)
-    _kernels.launch("recomb_scan_jvp2", inputs[0].device, *inputs, *parts, out, dout,
+    work = _kernels.recomb_work(3, nw, n, out.device)
+    _kernels.launch("recomb_scan_jvp2", inputs[0].device, *inputs, *parts, out, dout, work,
                     ints=(nw, n), doubles=(float(dlna),))
     return Jet(tuple(out.unbind(0)), *(tuple(dout[..., i].unbind(0)) for i in range(3)))
 

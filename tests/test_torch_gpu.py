@@ -165,6 +165,45 @@ def test_recomb_scan_jvp_matches_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_recomb_scan_across_the_saha_boundary_on_card(cuda):
+    """The recurrence's kernels on a batch whose rows leave the Saha block
+    at different steps, so that the warp's threads part there (ω_b at the
+    training box's two ends, a fiducial row beside them; on a 1024-point
+    grid, where their blocks end at steps 662 and 661: at 512 points the
+    box's ends leave it at the same step), and the first Peebles step (θ = 1)
+    falls on a different step in each: ``recomb_scan`` against its plain
+    loop (relative error ≤ 1e-10), ``recomb_scan_jvp`` against forward AD of
+    the plain loop (a seeded tangent in the six table fields; ≤ 1e-9 of the
+    largest tangent)."""
+    from torch.autograd import forward_ad
+    from eftpipe_tpu_torch.boltzmann import einstein_boltzmann as eb, thermo
+    from eftpipe_tpu_torch.boltzmann.dual import DenseTangents
+
+    lo, hi = eb.BOX_BOUNDS["omega_b"]
+    f64 = dict(dtype=torch.float64, device=cuda)
+    par = thermo.as_batch(thermo.CosmoParams(
+        omega_b=torch.tensor([lo, hi, 0.0224], **f64), omega_cdm=torch.full((3,), 0.12, **f64),
+        h=torch.full((3,), 0.68, **f64), ln10As=3.044, ns=0.9649, m_ncdm=0.02, n_ur=0.00641,
+        deg_ncdm=3.0))
+    bg = thermo.background_tables(par, n_grid=1024)
+    ins = thermo.recomb_inputs(par, bg)
+    dlna = thermo.scan_step(bg)
+    ends = [int((~(ins[3][w] > 0.999)).nonzero()[0]) for w in range(3)]
+    assert ends[0] != ends[1]
+    got = thermo.recomb_scan(*ins, dlna)
+    for g, r in zip(got, thermo.recomb_scan_plain(*ins, dlna)):
+        assert float(((g - r).abs() / r.abs()).max()) <= 1e-10
+    with forward_ad.dual_level(), DenseTangents():
+        dpar = seeded_dual(par, np.random.default_rng(5))
+        dins = thermo.recomb_inputs(dpar, thermo.background_tables(dpar, n_grid=1024))
+        dgot = [forward_ad.unpack_dual(o) for o in thermo.recomb_scan(*dins, dlna)]
+        ref = [forward_ad.unpack_dual(o) for o in thermo.recomb_scan_plain(*dins, dlna)]
+    for g, r in zip(dgot, ref):
+        assert torch.isfinite(r.tangent).all() and float(r.tangent.abs().max()) > 0
+        assert rel_tangent_err(g.tangent, r.tangent) <= 1e-9
+
+
+@pytest.mark.gpu
 def test_eb_solve_matches_plain_on_card(cuda):
     """``eb_solve`` (one warp per (cosmology, mode), each mode's unpadded
     schedule) against the plain step loop on the padded buckets: two
