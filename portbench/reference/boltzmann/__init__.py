@@ -1,0 +1,1 @@
+"""boltzmann of the PyTorch/CUDA port (counterpart of ``eftpipe_tpu/boltzmann/``)."""

@@ -1,0 +1,1 @@
+"""likelihood of the PyTorch/CUDA port (counterpart of ``eftpipe_tpu/likelihood/``)."""

@@ -1,0 +1,1 @@
+"""tables of the PyTorch/CUDA port (counterpart of ``eftpipe_tpu/tables/``)."""
